@@ -1,0 +1,95 @@
+"""Projection stage: gaussian parameters -> screen-space splats (torch port
+of gaussian_splat_ipu_tpu/render/projection.py): view/clip transforms,
+viewport mapping, EWA cov2D, conic, alpha-aware extents, SH colour and the
+frustum cull."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_ipu_tpu_torch.ops import covariance, sh, transforms
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+
+
+class ProjectedSplats(NamedTuple):
+    """Screen-space splats, all (N,) or (N, k) f32."""
+
+    xy: torch.Tensor        # (N, 2) pixel centre
+    depth: torch.Tensor     # (N,) view-space depth (positive in front)
+    conic: torch.Tensor     # (N, 3) inverse 2D covariance (A, B, C)
+    color: torch.Tensor     # (N, 3) RGB
+    opacity: torch.Tensor   # (N,) post-activation opacity
+    radius: torch.Tensor    # (N, 2) footprint half-extents; (0, 0) = culled
+
+
+def project_gaussians(model: GaussianModel, camera: Camera,
+                      cfg: RasterConfig,
+                      xy_probe: torch.Tensor | None = None
+                      ) -> ProjectedSplats:
+    """xy_probe: optional (N, 2) zeros added to the screen position, whose
+    gradient is the screen-space positional gradient densification uses."""
+    means = model.means.to(torch.float32)
+
+    view_h = transforms.transform_points(camera.view, means)      # (N, 4)
+    clip = transforms.transform_points(camera.proj, view_h)        # (N, 4)
+    t_view = view_h[:, :3]
+    depth = -t_view[:, 2]  # camera looks down -z; positive in front
+
+    xy = transforms.clip_to_screen(clip, cfg.image_width, cfg.image_height)
+    if xy_probe is not None:
+        xy = xy + xy_probe
+
+    fx, fy, tan_fovx, tan_fovy = camera.focals(cfg.image_width,
+                                               cfg.image_height)
+    cov3d = covariance.covariance_3d(model.log_scales, model.quats)
+    a, b, c = covariance.ewa_project(t_view, cov3d, camera.view, fx, fy,
+                                     tan_fovx, tan_fovy, cfg.lowpass)
+    ca, cb, cc, conic_valid = covariance.conic(a, b, c)
+
+    opacity = model.opacities.to(torch.float32)
+    if cfg.sigmoid_opacity:
+        opacity = torch.sigmoid(opacity)
+    if cfg.antialias:
+        opacity = opacity * covariance.aa_opacity_compensation(
+            a, b, c, cfg.lowpass)
+    rx, ry = covariance.splat_extent(a, c, opacity.detach(), cfg.alpha_min,
+                                     cfg.extent_sigma)
+
+    degree = model.sh_degree
+    if cfg.active_sh_degree >= 0:
+        degree = min(degree, cfg.active_sh_degree)
+    if degree == 0:
+        color = sh.dc_to_rgb(model.sh[:, 0])
+    else:
+        dirs = means - camera.cam_origin[None, :]
+        dirs = dirs / torch.clamp_min(
+            torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), 1e-8)
+        rot = (transforms.rotate_y(camera.env_rot[1])[:3, :3]
+               @ transforms.rotate_x(camera.env_rot[0])[:3, :3])
+        dirs = dirs @ rot.T
+        color = sh.eval_sh(model.sh, dirs, degree)
+
+    # Frustum cull: in front of the near plane, on screen with the radius
+    # guard band, a valid conic, a non-empty footprint, visible opacity.
+    w = clip[:, 3]
+    near_ok = w > 1e-6
+    on_screen = ((xy[:, 0] + rx >= 0.0)
+                 & (xy[:, 0] - rx <= cfg.image_width)
+                 & (xy[:, 1] + ry >= 0.0)
+                 & (xy[:, 1] - ry <= cfg.image_height))
+    visible = near_ok & on_screen & conic_valid & (rx > 0.0) & (
+        ry > 0.0) & (opacity >= cfg.alpha_min)
+    radius = torch.where(visible[:, None], torch.stack([rx, ry], -1), 0.0)
+
+    return ProjectedSplats(
+        xy=xy,
+        depth=depth,
+        conic=torch.stack([ca, cb, cc], -1),
+        color=color,
+        opacity=opacity,
+        radius=radius,
+    )

@@ -1,0 +1,97 @@
+"""The port's CLI (gaussian_splat_ipu_tpu_torch.app.main) on the CPU: the
+PNG it writes equals the port's render at the app's camera, the demand
+probe sizes the table, unported flags are refused, and scene loading
+matches the JAX package's."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from gaussian_splat_ipu_tpu.io.scene import load_scene as j_load_scene
+from gaussian_splat_ipu_tpu_torch.app import main as app
+from gaussian_splat_ipu_tpu_torch.io.scene import load_scene, write_ply
+from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_ipu_tpu_torch.render.pipeline import render
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from gaussian_splat_ipu_tpu_torch.utils.image import decode_png, to_uint8
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def ply(tmp_path):
+    gen = torch.Generator().manual_seed(7)
+    path = str(tmp_path / "scene.ply")
+    model = GaussianModel.random(600, generator=gen, device="cpu",
+                                 sh_degree=1)
+    with torch.no_grad():
+        model.log_scales += 1.5     # larger splats for a tiny image
+    write_ply(path, model)
+    return path
+
+
+def test_cli_png_matches_render(ply, tmp_path):
+    out = str(tmp_path / "out.png")
+    assert app.main(["--input", ply, "--width", "96", "--height", "64",
+                     "--device", "cpu", "--output", out,
+                     "--pair-capacity", "8192", "--log-level", "warn"]) == 0
+    got = decode_png(open(out, "rb").read())
+
+    scene = load_scene(ply, device="cpu")
+    cam = Camera.orbit(scene.bb_min, scene.bb_max, float(np.radians(40.0)),
+                       96 / 64, rot_y_deg=0.0, device="cpu")
+    cfg = RasterConfig(image_width=96, image_height=64, pair_capacity=8192,
+                       strict_termination=False)
+    with torch.inference_mode():
+        want = to_uint8(render(scene.model, cam, cfg).image.numpy())
+    np.testing.assert_array_equal(got, want)
+    assert got[..., 3].max() > 0
+
+
+def test_cli_probe_frames_and_dump(ply, tmp_path):
+    frames = str(tmp_path / "frames")
+    stats = app.run(["--input", ply, "--width", "96", "--height", "64",
+                     "--device", "cpu", "--output", str(tmp_path / "o.png"),
+                     "--pair-capacity", "0", "--frames", "3",
+                     "--dump-frames", frames, "--exact-tiles",
+                     "--tile-group", "2", "--strict-termination",
+                     "--antialias", "--log-level", "warn"])
+    assert stats["frames"] == 3 and len(stats["frame_ms"]) == 3
+    assert stats["overflow"] == 0 and stats["truncated"] == 0
+    assert 0 < stats["num_pairs"] <= stats["pair_capacity"]
+    assert stats["pair_capacity"] % 128 == 0
+    assert sorted(os.listdir(frames)) == [f"frame_{i:05d}.png"
+                                          for i in range(3)]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--device", "points"], ["--ui-port", "9000"], ["--distributed", "4"],
+    ["--rowseg", "2"]])
+def test_cli_rejects_unported_flags(ply, flags, capsys):
+    with pytest.raises(SystemExit) as e:
+        app.parse_args(["--input", ply] + flags)
+    assert e.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_cuda_without_a_card_fails(ply, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: this checks the CPU-only case")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        app.run(["--input", ply, "--output", str(tmp_path / "o.png")])
+
+
+def test_load_scene_matches_jax(ply):
+    want = j_load_scene(ply)
+    got = load_scene(ply, device="cpu")
+    assert got.num_gaussians == want.num_gaussians == 600
+    np.testing.assert_array_equal(got.bb_min, want.bb_min)
+    np.testing.assert_array_equal(got.bb_max, want.bb_max)
+    for k, v in got.model.to_numpy().items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(want.model, k)),
+                                      err_msg=k)
+    with pytest.raises(ValueError, match="unsupported"):
+        load_scene(ply[:-4] + ".splat", device="cpu")
