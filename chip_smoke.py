@@ -6,23 +6,33 @@ one NVIDIA GPU.
 
 Phases, each printing its own lines:
   1. environment: card name and power limit, torch and CUDA versions, the
-     kernel build (nvcc, sm_90a) and its time, TF32 off;
+     kernel build (one nvcc per source, in parallel, sm_90a) and its time,
+     TF32 off;
   2. each CUDA kernel against its plain PyTorch version on the card, on
      inputs the port's own projection and binning make at main-path
-     shapes: coverage masks and stream expansion exactly equal, the
-     rasterizer (strict and relaxed) within 1e-5; CUDA-event medians of
-     both; then the CUDA binning and rasterizer against the CPU spec on a
-     small scene;
+     shapes: coverage masks and stream expansion exactly equal; the
+     forward rasterizer (strict, relaxed, strict with contributor counts)
+     within 1e-5, the counts exactly equal; the backward rasterizer within
+     a bound scaled to each gradient row (TOL_BWD_*); CUDA-event medians
+     of each kernel and each plain version. Then, on a small scene, the
+     CUDA binning, rasterizer, pair-table gradient and model gradients
+     against the CPU path;
   3. the app's render loop (app/main.py) on a seeded 37,941-gaussian PLY
      at 1280x720, 8 orbit frames, demand-probed capacity, its default
      relaxed termination;
   4. the 1M-gaussian config: 2^20 random gaussians, tile_group=3,
      exact_tile_test, strict termination, 3 orbit frames at a
-     demand-probed capacity.
-The launch counters are zeroed before phase 3 and read after phase 4:
-every kernel must have carried those frames. Then one JSON line of
-per-kernel results, the card line, and last the status line
-{"ok": true, "device": {...}}. Any failure exits non-zero before it.
+     demand-probed capacity;
+  5. the 1M train step: train_step against a target rendered from the
+     same model at angle 0, capacity 1.15x that view's demand, L1 loss;
+  6. the train app (app/train.py) in distill mode on the 37,941-gaussian
+     PLY at 640x360 over 8 orbit views, with a checkpoint that a second
+     run resumes for one more step.
+The launch counters are zeroed just before each of phases 3-6 and read
+just after it: every kernel must have carried the path that uses it.
+Then one JSON line of per-kernel results, the card line, and last the
+status line {"ok": true, "device": {...}}. Any failure exits non-zero
+before it.
 """
 
 from __future__ import annotations
@@ -38,10 +48,31 @@ import time
 import numpy as np
 
 TOL_RASTER = 1e-5
+# Backward bound, per element: |got - ref| <= TOL_BWD_ROW * max|ref row|
+# + TOL_BWD_REL * |ref|. Atomics (kernel) and tensor reductions (plain)
+# sum each pair's pixel terms in different orders; terms of both signs
+# cancel, so an entry's error follows the size of its terms, which the
+# row's scale bounds, not its own (possibly cancelled) value.
+TOL_BWD_ROW = 1e-4
+TOL_BWD_REL = 1e-3
 APP_GAUSSIANS = 37_941          # the reference demo scene's size
 N_1M = 1 << 20
 WIDTH, HEIGHT = 1280, 720
+TRAIN_W, TRAIN_H = 640, 360     # the train CLI's default resolution
+TRAIN_VIEWS = 8
+TRAIN_STEPS_APP = 3 * TRAIN_VIEWS
+TRAIN_STEPS_1M = 4
 SEED = 0
+KERNEL_SOURCES = {
+    "coverage_masks": ("coverage.cu", "render/kernels/coverage.py:106"),
+    "stream_expand": ("expand.cu", "render/kernels/expand.py:338"),
+    "rasterize_strict": ("rasterize.cu", "render/kernels/rasterize.py:287"),
+    "rasterize_relaxed": ("rasterize.cu",
+                          "render/kernels/rasterize.py:287"),
+    "rasterize_strict_aux": ("rasterize.cu",
+                             "render/kernels/rasterize.py:287"),
+    "rasterize_bwd": ("rasterize_bwd.cu", "render/kernels/rasterize.py:573"),
+}
 
 
 def fail(msg: str):
@@ -53,6 +84,13 @@ def say(phase: str, **kv):
     print(f"[{phase}] " + json.dumps(kv), flush=True)
 
 
+def result(name: str, **kv) -> dict:
+    src, replaces = KERNEL_SOURCES[name]
+    return dict(name=name, route="cuda",
+                source=f"gaussian_splat_ipu_tpu_torch/csrc/{src}",
+                replaces=f"gaussian_splat_ipu_tpu/{replaces}", **kv)
+
+
 def exact_err(kernel: str, names, got, ref) -> float:
     """Max abs difference over the outputs; fails unless all are equal."""
     import torch
@@ -62,6 +100,19 @@ def exact_err(kernel: str, names, got, ref) -> float:
                  "differ from the plain version")
     return max(float((a.double() - b.double()).abs().max())
                for a, b in zip(got, ref))
+
+
+def bwd_err(kernel: str, got, ref) -> float:
+    """Max abs difference; fails unless every element is within the
+    row-scaled bound (TOL_BWD_*) and finite."""
+    import torch
+    bound = (TOL_BWD_ROW * ref.abs().amax(dim=-1, keepdim=True)
+             + TOL_BWD_REL * ref.abs())
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
+        fail(f"{kernel}: {int((err > bound).sum())} of {err.numel()} "
+             f"outside the bound; max abs error {float(err.max())}")
+    return float(err.max())
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -80,6 +131,55 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def counted(cuda_lib, fn):
+    """Run fn() with the launch counters zeroed just before it; return
+    (fn's result, the launches it made)."""
+    cuda_lib.launches.clear()
+    out = fn()
+    return out, dict(cuda_lib.launches)
+
+
+def need_launches(path: str, launches: dict, names, least: int):
+    for k in names:
+        if launches.get(k, 0) < least:
+            fail(f"{path} launched {k} {launches.get(k, 0)} times, fewer "
+                 f"than {least}: {launches}")
+
+
+def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int):
+    """The strict aux forward and the backward kernel against their plain
+    versions on one binned frame: returns a dict of errors and times."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
+    from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
+        rasterize_backward_torch, rasterize_tiles_torch)
+    tiles, nc = rasterize.rasterize_tiles_aux(binned, cfg)
+    ref_tiles, ref_nc = rasterize_tiles_torch(binned, cfg, need_aux=True)
+    torch.cuda.synchronize()
+    aux_err = float((tiles - ref_tiles).abs().max())
+    if not (torch.isfinite(tiles).all() and aux_err <= TOL_RASTER):
+        fail(f"rasterize_strict_aux: max abs error {aux_err} (tolerance "
+             f"{TOL_RASTER})")
+    exact_err("rasterize_strict_aux", ("nc",), (nc,), (ref_nc,))
+    gen = torch.Generator(device=tiles.device).manual_seed(seed)
+    args = (binned.features, binned.tile_starts, binned.tile_ends,
+            torch.randn(tiles.shape, generator=gen, device=tiles.device),
+            1.0 - ref_tiles[..., 3], ref_nc, cfg)
+    got = rasterize.rasterize_backward(*args)
+    ref = rasterize_backward_torch(*args)
+    torch.cuda.synchronize()
+    return dict(
+        aux_err=aux_err, bwd_err=bwd_err("rasterize_bwd", got, ref),
+        broke_pixels=int((ref_nc < (binned.tile_ends - binned.tile_starts)
+                          [:, None].float()).sum()),
+        aux_ms=cuda_ms(lambda: rasterize.rasterize_tiles_aux(binned, cfg)),
+        aux_plain_ms=cuda_ms(lambda: rasterize_tiles_torch(
+            binned, cfg, need_aux=True), reps=plain_reps),
+        bwd_ms=cuda_ms(lambda: rasterize.rasterize_backward(*args)),
+        bwd_plain_ms=cuda_ms(lambda: rasterize_backward_torch(*args),
+                             reps=plain_reps))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -88,17 +188,20 @@ def main() -> int:
 
     from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
     from gaussian_splat_ipu_tpu_torch.models.camera import Camera
-    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import (
+        FIELDS, GaussianModel)
     from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
     from gaussian_splat_ipu_tpu_torch.render.kernels import (
         coverage, cuda_lib, expand, rasterize)
     from gaussian_splat_ipu_tpu_torch.render.projection import (
         project_gaussians)
     from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
-        rasterize_tiles_torch)
+        rasterize_backward_torch, rasterize_tiles_torch)
+    from gaussian_splat_ipu_tpu_torch.train import trainer
     from gaussian_splat_ipu_tpu_torch.utils import image as image_util
     from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
     import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    import gaussian_splat_ipu_tpu_torch.app.train as app_train
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -139,22 +242,28 @@ def main() -> int:
         return Camera.orbit(-bb1, bb1, fov, aspect, rot_y_deg=angle,
                             device=dev)
 
+    def capacity(demand: int, c: int) -> int:
+        return max(-(-int(1.15 * demand) // c) * c, 4 * c)
+
     cfg_1m = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
                           pair_capacity=1 << 22, tile_group=3,
                           exact_tile_test=True)
     with torch.inference_mode():
-        # One demand probe over the frames the 1M phase renders (the count
-        # is exact at any capacity: num_pairs + overflow).
-        worst = max(int(b.num_pairs + b.overflow) for b in (
+        # One demand probe per frame the 1M phases render (the count is
+        # exact at any capacity: num_pairs + overflow).
+        demand = [int(b.num_pairs + b.overflow) for b in (
             binning.bin_splats(project_gaussians(model_1m, cam_1m(a),
                                                  cfg_1m), cfg_1m)
-            for a in angles_1m))
+            for a in angles_1m)]
         c = cfg_1m.chunk_size
-        cfg_1m = dataclasses.replace(
-            cfg_1m, pair_capacity=max(-(-int(1.15 * worst) // c) * c, 4 * c))
+        # Frames: the worst of the orbit; training: its camera (angle 0).
+        cfg_train_1m = dataclasses.replace(
+            cfg_1m, pair_capacity=capacity(demand[0], c))
+        cfg_1m = dataclasses.replace(cfg_1m,
+                                     pair_capacity=capacity(max(demand), c))
 
         # -- 2. kernels against their plain versions ------------------------
-        results = []
+        results = {}
         splats_1m = project_gaussians(model_1m, cam_1m(0.0), cfg_1m)
         x0, y0, nx, ny = binning.cell_footprints(splats_1m, cfg_1m)
         _, geomf, geomi = binning.coverage_inputs(splats_1m, x0, y0, nx, ny)
@@ -163,30 +272,26 @@ def main() -> int:
         got = coverage.coverage_masks(geomf, geomi, **kw)
         ref = coverage.coverage_masks_torch(geomf, geomi, **kw)
         torch.cuda.synchronize()
-        results.append(dict(
-            name="coverage_masks", route="cuda",
-            source="gaussian_splat_ipu_tpu_torch/csrc/coverage.cu",
-            replaces="gaussian_splat_ipu_tpu/render/kernels/coverage.py:106",
+        results["coverage_masks"] = result(
+            "coverage_masks",
             max_abs_err=exact_err("coverage_masks", ("mlo", "mhi", "count"),
                                   got, ref),
             ms=cuda_ms(lambda: coverage.coverage_masks(geomf, geomi, **kw)),
             plain_ms=cuda_ms(lambda: coverage.coverage_masks_torch(
-                geomf, geomi, **kw))))
+                geomf, geomi, **kw)))
 
         packed, offs = binning.pack_gaussians(splats_1m, cfg_1m)
         p = cfg_1m.pair_capacity
         got = expand.stream_expand(packed, offs, p)
         ref = expand.stream_expand_torch(packed, offs, p)
         torch.cuda.synchronize()
-        results.append(dict(
-            name="stream_expand", route="cuda",
-            source="gaussian_splat_ipu_tpu_torch/csrc/expand.cu",
-            replaces="gaussian_splat_ipu_tpu/render/kernels/expand.py:338",
+        results["stream_expand"] = result(
+            "stream_expand",
             max_abs_err=exact_err("stream_expand", ("cols", "gid", "rank"),
                                   got, ref),
             ms=cuda_ms(lambda: expand.stream_expand(packed, offs, p)),
             plain_ms=cuda_ms(lambda: expand.stream_expand_torch(
-                packed, offs, p))))
+                packed, offs, p)))
 
         cfg_app = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
                                pair_capacity=1 << 19,
@@ -206,33 +311,69 @@ def main() -> int:
             if not (torch.isfinite(got).all() and err <= TOL_RASTER):
                 fail(f"{name}: max abs error {err} against the plain "
                      f"version (tolerance {TOL_RASTER})")
-            results.append(dict(
-                name=name, route="cuda",
-                source="gaussian_splat_ipu_tpu_torch/csrc/rasterize.cu",
-                replaces="gaussian_splat_ipu_tpu/render/kernels/"
-                         "rasterize.py:287",
-                max_abs_err=err,
+            results[name] = result(
+                name, max_abs_err=err,
                 ms=cuda_ms(lambda: rasterize.rasterize_tiles(binned, cfg)),
                 plain_ms=cuda_ms(lambda: rasterize_tiles_torch(binned, cfg),
-                                 reps=3 if name.endswith("strict") else 5)))
-        shapes = (f"N={geomf.shape[1]}", f"N={packed.shape[0] - 1},P={p}",
-                  f"T={binned_1m.tile_starts.shape[0]},"
-                  f"pairs={int(binned_1m.num_pairs)},g=3",
-                  f"T={binned_app.tile_starts.shape[0]},"
-                  f"pairs={int(binned_app.num_pairs)},g=1")
-        for r, shape in zip(results, shapes):
-            say("kernel", shape=shape, **r)
+                                 reps=3 if name.endswith("strict") else 5))
+        shapes = {
+            "coverage_masks": f"N={geomf.shape[1]}",
+            "stream_expand": f"N={packed.shape[0] - 1},P={p}",
+            "rasterize_strict": f"T={binned_1m.tile_starts.shape[0]},"
+                                f"pairs={int(binned_1m.num_pairs)},g=3",
+            "rasterize_relaxed": f"T={binned_app.tile_starts.shape[0]},"
+                                 f"pairs={int(binned_app.num_pairs)},g=1"}
+        for name, shape in shapes.items():
+            say("kernel", shape=shape, **results[name])
+
+        # The strict aux forward and the backward at the two training
+        # shapes: the 1M train step's frame and the train app's first
+        # step (its distill initialisation at view 0, 640x360).
+        binned_t1m = binning.bin_splats(
+            project_gaussians(model_1m, cam_1m(0.0), cfg_train_1m),
+            cfg_train_1m)
+        extent = float(np.linalg.norm(app_scene.bb_max - app_scene.bb_min)
+                       * 0.5)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        init_app = GaussianModel.random(APP_GAUSSIANS, generator=gen,
+                                        device=dev, extent=extent)
+        cfg_tapp = RasterConfig(image_width=TRAIN_W, image_height=TRAIN_H)
+        cam_tapp = Camera.orbit(app_scene.bb_min, app_scene.bb_max, fov,
+                                TRAIN_W / TRAIN_H, device=dev)
+        binned_tapp = binning.bin_splats(
+            project_gaussians(init_app, cam_tapp, cfg_tapp), cfg_tapp)
+        checks = {}
+        for shape_name, binned, cfg, reps in (
+                ("1M 1280x720 g=3", binned_t1m, cfg_train_1m, 1),
+                ("app 640x360 g=1", binned_tapp, cfg_tapp, 3)):
+            chk = check_aux_and_bwd(binned, cfg, SEED + 5, reps)
+            checks[shape_name] = chk
+            say("train_kernels", shape=shape_name,
+                tiles=binned.tile_starts.shape[0],
+                pairs=int(binned.num_pairs), **chk)
+        main_chk = checks["1M 1280x720 g=3"]
+        results["rasterize_strict_aux"] = result(
+            "rasterize_strict_aux",
+            max_abs_err=max(c["aux_err"] for c in checks.values()),
+            ms=main_chk["aux_ms"], plain_ms=main_chk["aux_plain_ms"])
+        results["rasterize_bwd"] = result(
+            "rasterize_bwd",
+            max_abs_err=max(c["bwd_err"] for c in checks.values()),
+            ms=main_chk["bwd_ms"], plain_ms=main_chk["bwd_plain_ms"])
 
         # The CUDA binning and rasterizer on a small scene against the CPU
         # spec (which the CPU tests hold to the JAX package), from the same
-        # projected splats: tables bit-identical, images within 1e-5.
+        # projected splats: tables bit-identical, images within 1e-5, the
+        # pair-table gradient within the backward's bound.
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         small = GaussianModel.random(2000, generator=gen, device=dev)
+        small_cfgs = []
         for g, exact in ((1, False), (3, True)):
             cfg_s = RasterConfig(image_width=160, image_height=96,
                                  tile_width=16, tile_height=16,
                                  chunk_size=32, pair_capacity=1 << 14,
                                  tile_group=g, exact_tile_test=exact)
+            small_cfgs.append(cfg_s)
             cam_s = Camera.orbit(-np.ones(3), np.ones(3), fov, 160 / 96,
                                  rot_y_deg=30.0, device=dev)
             sp = project_gaussians(small, cam_s, cfg_s)
@@ -249,56 +390,87 @@ def main() -> int:
             if err > TOL_RASTER:
                 fail(f"small scene g={g}: CUDA image differs from the CPU "
                      f"spec by {err}")
+            tiles, nc = rasterize_tiles_torch(b_cpu, cfg_s, need_aux=True)
+            cot = torch.randn(tiles.shape, generator=torch.Generator(
+                ).manual_seed(g))
+            args = (1.0 - tiles[..., 3], nc, cfg_s)
+            dfeat = rasterize.rasterize_backward(
+                b_gpu.features, b_gpu.tile_starts, b_gpu.tile_ends,
+                cot.to(dev), *(a.to(dev) for a in args[:2]), cfg_s)
+            dfeat_err = bwd_err(f"small scene g={g} dfeat", dfeat.cpu(),
+                                rasterize_backward_torch(
+                                    b_cpu.features, b_cpu.tile_starts,
+                                    b_cpu.tile_ends, cot, *args))
             say("small_scene_vs_cpu", tile_group=g, exact_tile_test=exact,
                 pairs=int(b_cpu.num_pairs), binned_identical=True,
-                max_abs_err=err)
+                max_abs_err=err, dfeat_max_abs_err=dfeat_err)
+
+    # Model gradients of the whole differentiable render, CUDA against the
+    # CPU path, from the same weights and the same pixel weights.
+    for cfg_s in small_cfgs:
+        cam_s = Camera.orbit(-np.ones(3), np.ones(3), fov, 160 / 96,
+                             rot_y_deg=30.0, device="cpu")
+        w = torch.randn((96, 160, 4), generator=torch.Generator(
+            ).manual_seed(SEED + 2))
+        grads = {}
+        for d in (dev, torch.device("cpu")):
+            m = GaussianModel.from_numpy(small.to_numpy(), d).trainable()
+            loss = torch.sum(pipeline.render_image(m, cam_s.to(d), cfg_s)
+                             * w.to(d))
+            loss.backward()
+            grads[d.type] = {k: getattr(m, k).grad.cpu() for k in FIELDS}
+        errs = {k: bwd_err(f"small scene g={cfg_s.tile_group} d{k}",
+                           grads["cuda"][k].reshape(len(small.means), -1)
+                           .T, grads["cpu"][k].reshape(len(small.means), -1)
+                           .T) for k in FIELDS}
+        say("small_scene_grads_vs_cpu", tile_group=cfg_s.tile_group,
+            max_abs_err=errs)
 
     # -- 3. the app ---------------------------------------------------------
-    cuda_lib.launches.clear()
+    launches = {}
     out_png = os.path.join(tmp, "app.png")
     t0 = time.perf_counter()
-    stats = app_main.run([
+    stats, launches["app"] = counted(cuda_lib, lambda: app_main.run([
         "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
         "--frames", "8", "--pair-capacity", "0", "--device", "cuda",
-        "--output", out_png, "--log-level", "warn"])
+        "--output", out_png, "--log-level", "warn"]))
     app_s = time.perf_counter() - t0
-    app_launches = dict(cuda_lib.launches)
     img = image_util.decode_png(open(out_png, "rb").read())
     if img.shape != (HEIGHT, WIDTH, 4) or img[..., :3].max() == 0:
         fail(f"app PNG is blank or misshapen: {img.shape}")
-    for k in ("stream_expand", "rasterize_relaxed"):
-        if app_launches.get(k, 0) < 8:
-            fail(f"app run launched {k} {app_launches.get(k, 0)} times "
-                 "for 8 frames")
+    need_launches("app run", launches["app"],
+                  ("stream_expand", "rasterize_relaxed"), 8)
     if stats["overflow"] or stats["truncated"]:
         fail(f"app run dropped pairs: {stats}")
     say("app", gaussians=APP_GAUSSIANS, frames=stats["frames"],
         pair_capacity=stats["pair_capacity"], num_pairs=stats["num_pairs"],
         overflow=stats["overflow"], truncated=stats["truncated"],
         median_frame_ms=stats["median_ms"], frame_ms=stats["frame_ms"],
-        wall_s=app_s, launches=app_launches,
+        wall_s=app_s, launches=launches["app"],
         lit_pixels=int((img[..., 3] > 0).sum()))
 
     # -- 4. the 1M config ---------------------------------------------------
-    before = dict(cuda_lib.launches)
-    frame_ms, out = [], None
-    with torch.inference_mode():
-        for a in angles_1m:
-            cam = cam_1m(a)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = pipeline.render(model_1m, cam, cfg_1m)
-            end.record()
-            end.synchronize()
-            frame_ms.append(start.elapsed_time(end))
-            if int(out.overflow) or not bool(torch.isfinite(out.image).all()):
-                fail(f"1M frame at {a} deg: overflow {int(out.overflow)} "
-                     "or non-finite pixels")
-    launches = dict(cuda_lib.launches)
-    for k in ("coverage_masks", "stream_expand", "rasterize_strict"):
-        if launches.get(k, 0) - before.get(k, 0) < len(angles_1m):
-            fail(f"1M run launched {k} too few times: {launches}")
+    def frames_1m():
+        frame_ms, out = [], None
+        with torch.inference_mode():
+            for a in angles_1m:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = pipeline.render(model_1m, cam_1m(a), cfg_1m)
+                end.record()
+                end.synchronize()
+                frame_ms.append(start.elapsed_time(end))
+                if int(out.overflow) or not bool(
+                        torch.isfinite(out.image).all()):
+                    fail(f"1M frame at {a} deg: overflow "
+                         f"{int(out.overflow)} or non-finite pixels")
+        return frame_ms, out
+
+    (frame_ms, out), launches["1m"] = counted(cuda_lib, frames_1m)
+    need_launches("1M run", launches["1m"],
+                  ("coverage_masks", "stream_expand", "rasterize_strict"),
+                  len(angles_1m))
     if tuple(out.image.shape) != (HEIGHT, WIDTH, 4) or float(
             out.image[..., 3].max()) <= 0.0:
         fail("1M frame is blank or misshapen")
@@ -306,15 +478,108 @@ def main() -> int:
         exact_tile_test=True, strict=True,
         pair_capacity=cfg_1m.pair_capacity, num_pairs=int(out.num_pairs),
         overflow=int(out.overflow), truncated=int(out.truncated),
-        frame_ms=frame_ms, median_frame_ms=float(np.median(frame_ms)))
+        frame_ms=frame_ms, median_frame_ms=float(np.median(frame_ms)),
+        launches=launches["1m"])
 
-    for r in results:
-        r["launches"] = launches.get(r["name"], 0)
+    # -- 5. the 1M train step -----------------------------------------------
+    cam0 = cam_1m(0.0)
+    with torch.inference_mode():
+        target_out = pipeline.render(model_1m, cam0, cfg_train_1m)
+    target = target_out.image.clone()   # a normal tensor for autograd
+    tc_1m = trainer.TrainConfig(ssim_weight=0.0)
+    state = trainer.init_state(model_1m.trainable(), tc_1m)
+
+    def steps_1m():
+        step_ms, losses = [], []
+        for _ in range(TRAIN_STEPS_1M):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, loss = trainer.train_step(state, cam0, target, cfg_train_1m,
+                                         tc_1m)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        return step_ms, losses
+
+    (step_ms, losses_1m), launches["train_1m"] = counted(cuda_lib, steps_1m)
+    need_launches("1M train", launches["train_1m"],
+                  ("coverage_masks", "stream_expand", "rasterize_strict_aux",
+                   "rasterize_bwd"), TRAIN_STEPS_1M)
+    params = list(state.params.parameters())
+    qnorm = torch.linalg.vector_norm(state.params.quats.detach(), dim=-1)
+    with torch.inference_mode():
+        after = pipeline.render(state.params, cam0, cfg_train_1m)
+    if not (np.isfinite(losses_1m).all()
+            and all(bool(torch.isfinite(t).all()) for t in params)):
+        fail(f"1M train: non-finite loss or parameters: {losses_1m}")
+    if float((qnorm - 1.0).abs().max()) > 1e-5:
+        fail("1M train: quaternions not normalised")
+    if int(target_out.overflow) or int(after.overflow):
+        fail(f"1M train dropped pairs: overflow {int(target_out.overflow)} "
+             f"before, {int(after.overflow)} after")
+    say("train_1m", gaussians=N_1M, steps=TRAIN_STEPS_1M,
+        pair_capacity=cfg_train_1m.pair_capacity,
+        num_pairs=int(target_out.num_pairs),
+        overflow=int(after.overflow), truncated=int(after.truncated),
+        losses=losses_1m, step_ms=step_ms,
+        median_step_ms=float(np.median(step_ms[1:])),
+        quat_norm_max_dev=float((qnorm - 1.0).abs().max()),
+        launches=launches["train_1m"])
+    del state, params
+
+    # -- 6. the train app ---------------------------------------------------
+    ckpt = os.path.join(tmp, "train.npz")
+    common = ["--input", ply_path, "--mode", "distill", "--width",
+              str(TRAIN_W), "--height", str(TRAIN_H), "--views",
+              str(TRAIN_VIEWS), "--device", "cuda", "--seed", str(SEED),
+              "--log-level", "warn"]
+    t0 = time.perf_counter()
+    tstats, launches["train_app"] = counted(cuda_lib, lambda: app_train.run(
+        common + ["--steps", str(TRAIN_STEPS_APP), "--checkpoint", ckpt]))
+    train_s = time.perf_counter() - t0
+    need_launches("train app", launches["train_app"],
+                  ("stream_expand", "rasterize_strict_aux",
+                   "rasterize_bwd"), TRAIN_STEPS_APP)
+    first = float(np.mean(tstats["losses"][:TRAIN_VIEWS]))
+    last = float(np.mean(tstats["losses"][-TRAIN_VIEWS:]))
+    if not (np.isfinite(tstats["losses"]).all() and last < first):
+        fail(f"train app: the loss did not fall: first epoch {first}, "
+             f"last epoch {last}")
+    if any(tstats["target_overflow"]) or tstats["final_overflow"]:
+        fail(f"train app dropped pairs: targets {tstats['target_overflow']}"
+             f", final render {tstats['final_overflow']}")
+    if not os.path.isfile(ckpt):
+        fail("train app wrote no checkpoint")
+    resumed, launches["train_app_resume"] = counted(
+        cuda_lib, lambda: app_train.run(common + ["--steps", "1",
+                                                  "--resume", ckpt]))
+    if resumed["step"] != TRAIN_STEPS_APP + 1 or not np.isfinite(
+            resumed["losses"]).all():
+        fail(f"train app resume: step {resumed['step']}, losses "
+             f"{resumed['losses']}")
+    say("train_app", gaussians=APP_GAUSSIANS, width=TRAIN_W,
+        height=TRAIN_H, views=TRAIN_VIEWS, steps=TRAIN_STEPS_APP,
+        pair_capacity=tstats["pair_capacity"],
+        num_pairs=tstats["num_pairs"],
+        target_overflow=tstats["target_overflow"],
+        target_truncated=tstats["target_truncated"],
+        final_overflow=tstats["final_overflow"],
+        first_epoch_loss=first, last_epoch_loss=last, psnr=tstats["psnr"],
+        median_step_ms=float(np.median(tstats["step_ms"][1:])),
+        step_ms=tstats["step_ms"], wall_s=train_s,
+        checkpoint_bytes=os.path.getsize(ckpt),
+        resumed_step=resumed["step"], resumed_loss=resumed["losses"][0],
+        launches=launches["train_app"])
+
+    for name, r in results.items():
+        r["launches"] = sum(path.get(name, 0) for path in launches.values())
         if r["launches"] == 0:
-            fail(f"{r['name']} was not launched on the main path")
+            fail(f"{name} was not launched on the main path")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported: the port must run without it")
-    print(json.dumps({"kernels": results}), flush=True)
+    print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 // Kernel C: forward compositing of each framebuffer tile's depth-sorted
-// pair range, strict and relaxed termination.
+// pair range: strict, relaxed, and strict with the contributor count.
 //
 // Replaces gaussian_splat_ipu_tpu/render/kernels/rasterize.py::
-// _pallas_forward -> _kernel as the inference primal of rasterize_tiles
-// calls it (need_aux=False; relaxed = not cfg.strict_termination). Plain
+// _pallas_forward -> _kernel in all three of its uses: the inference
+// primal of rasterize_tiles (need_aux=False; relaxed = not
+// cfg.strict_termination) and the differentiated forward raster_fwd
+// (need_aux=True, always strict), which also writes each pixel's
+// contributor count nc = min(first trigger position, end) - start as f32
+// (:278-284) for the backward replay (csrc/rasterize_bwd.cu). Plain
 // version: gaussian_splat_ipu_tpu_torch/render/tile_raster.py::
-// rasterize_tiles_torch.
+// rasterize_tiles_torch (need_aux=True for the third mode).
 //
 // Per (pair, pixel): power = -0.5 (A dx^2 + C dy^2) - B dx dy,
 // alpha = min(alpha_clamp, op * exp(power)); skipped when power > 0 or
@@ -32,7 +36,8 @@
 // plain version composites each chunk in the same serial order with the
 // same f32 operations (and -fmad=false keeps nvcc from fusing them), so
 // the two make the same near-threshold break decisions; the check is
-// atol 1e-5. The TPU's doubling scan rounds differently.
+// atol 1e-5, and nc exactly (the same break decisions give the same
+// trigger positions). The TPU's doubling scan rounds differently.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -41,7 +46,9 @@ namespace {
 
 constexpr int kRows = 9;  // FEAT_X .. FEAT_OPACITY of the pair table
 
-template <bool kRelaxed>
+enum Mode { kStrict = 0, kRelaxedMode = 1, kStrictAux = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(1024)
 rasterize_fwd_kernel(const float* __restrict__ feats, int p,
                      const int* __restrict__ starts,
@@ -49,7 +56,8 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int p,
                      int tile_w, int tile_h, int chunk, int max_pairs,
                      float eps, float alpha_clamp,
                      float alpha_min, float bg0, float bg1, float bg2,
-                     float4* __restrict__ out) {
+                     float4* __restrict__ out, float* __restrict__ nc) {
+  constexpr bool kRelaxed = kMode == kRelaxedMode;
   extern __shared__ float sm[];  // kRows x chunk
   const int tid = blockIdx.x;  // flat tile id of the whole grid
   const int pix = threadIdx.x;
@@ -72,6 +80,7 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int p,
 
   float t = 1.0f, cr = 0.0f, cg = 0.0f, cbl = 0.0f;
   bool done = false;
+  int stop = end;  // position of this pixel's break pair (strict modes)
   for (int base = start; base < end; base += chunk) {
     const int m = min(chunk, end - base);
     __syncthreads();  // every thread is done with the previous chunk
@@ -102,6 +111,7 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int p,
         } else {
           if (t_next < eps) {
             done = true;
+            stop = base + j;
             break;
           }
           const float w = alpha * t;
@@ -117,10 +127,27 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int p,
   }
   out[(size_t)tid * npix + pix] =
       make_float4(cr + t * bg0, cg + t * bg1, cbl + t * bg2, 1.0f - t);
+  if (kMode == kStrictAux) {
+    nc[(size_t)tid * npix + pix] = (float)(stop - start);
+  }
+}
+
+template <int kMode>
+void launch(const dim3& grid, const dim3& block, size_t smem, cudaStream_t s,
+            const float* feats, int p, const int* starts, const int* ends,
+            int tiles_x, int tile_w, int tile_h, int chunk, int max_pairs,
+            float eps, float alpha_clamp, float alpha_min, float bg0,
+            float bg1, float bg2, float* out, float* nc) {
+  rasterize_fwd_kernel<kMode><<<grid, block, smem, s>>>(
+      feats, p, starts, ends, tiles_x, tile_w, tile_h, chunk, max_pairs, eps,
+      alpha_clamp, alpha_min, bg0, bg1, bg2, reinterpret_cast<float4*>(out),
+      nc);
 }
 
 }  // namespace
 
+// mode: 0 strict, 1 relaxed, 2 strict + contributor count into nc (which
+// the other modes leave unread and may be null).
 extern "C" int gsplat_rasterize_fwd(const float* feats, int p,
                                     const int* starts, const int* ends,
                                     int num_tiles, int tiles_x,
@@ -128,20 +155,17 @@ extern "C" int gsplat_rasterize_fwd(const float* feats, int p,
                                     int max_pairs, float eps,
                                     float alpha_clamp, float alpha_min,
                                     float bg0, float bg1, float bg2,
-                                    int relaxed, float* out, void* stream) {
+                                    int mode, float* out, float* nc,
+                                    void* stream) {
   const dim3 grid(num_tiles);
   const dim3 block(tile_w * tile_h);
   const size_t smem = (size_t)kRows * chunk * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  float4* out4 = reinterpret_cast<float4*>(out);
-  if (relaxed) {
-    rasterize_fwd_kernel<true><<<grid, block, smem, s>>>(
-        feats, p, starts, ends, tiles_x, tile_w, tile_h, chunk, max_pairs,
-        eps, alpha_clamp, alpha_min, bg0, bg1, bg2, out4);
-  } else {
-    rasterize_fwd_kernel<false><<<grid, block, smem, s>>>(
-        feats, p, starts, ends, tiles_x, tile_w, tile_h, chunk, max_pairs,
-        eps, alpha_clamp, alpha_min, bg0, bg1, bg2, out4);
-  }
+  const decltype(&launch<kStrict>) fn =
+      mode == kRelaxedMode ? &launch<kRelaxedMode>
+      : mode == kStrictAux ? &launch<kStrictAux>
+                           : &launch<kStrict>;
+  fn(grid, block, smem, s, feats, p, starts, ends, tiles_x, tile_w, tile_h,
+     chunk, max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2, out, nc);
   return (int)cudaGetLastError();
 }

@@ -19,20 +19,29 @@ import numpy as np
 import torch
 from torch import nn
 
-_FIELDS = ("means", "log_scales", "quats", "opacities", "sh")
+# Field order = parameters() order = the reference pytree's leaf order.
+FIELDS = ("means", "log_scales", "quats", "opacities", "sh")
 
 
 class GaussianModel(nn.Module):
-    """The five parameter tensors of a scene. This port renders only, so
-    they are created with requires_grad=False."""
+    """The five parameter tensors of a scene. They are created with
+    requires_grad=False, so rendering builds no graph; `trainable()` gives
+    the copy a trainer differentiates."""
 
-    def __init__(self, means, log_scales, quats, opacities, sh):
+    def __init__(self, means, log_scales, quats, opacities, sh,
+                 requires_grad: bool = False):
         super().__init__()
-        for name, value in zip(_FIELDS, (means, log_scales, quats,
+        for name, value in zip(FIELDS, (means, log_scales, quats,
                                          opacities, sh)):
             setattr(self, name, nn.Parameter(
                 torch.as_tensor(value, dtype=torch.float32),
-                requires_grad=False))
+                requires_grad=requires_grad))
+
+    def trainable(self) -> "GaussianModel":
+        """A copy whose parameters require grad (own storage, so training
+        it leaves this model as it is)."""
+        return GaussianModel(*(getattr(self, k).detach().clone()
+                               for k in FIELDS), requires_grad=True)
 
     @property
     def num_gaussians(self) -> int:
@@ -89,7 +98,7 @@ class GaussianModel(nn.Module):
         opacities and sh — the bridge that carries JAX parameters across,
         so that both packages compute on identical weights."""
         return cls(*(torch.tensor(np.asarray(params[k], np.float32),
-                                  device=device) for k in _FIELDS))
+                                  device=device) for k in FIELDS))
 
     @classmethod
     def create(cls, means, log_scales, quats, opacities, f_dc,
@@ -130,7 +139,7 @@ class GaussianModel(nn.Module):
     def to_numpy(self) -> dict:
         """The five parameter arrays as numpy, keyed as from_numpy takes
         them."""
-        return {k: getattr(self, k).detach().cpu().numpy() for k in _FIELDS}
+        return {k: getattr(self, k).detach().cpu().numpy() for k in FIELDS}
 
 
 def center_and_flip(points: np.ndarray) -> np.ndarray:

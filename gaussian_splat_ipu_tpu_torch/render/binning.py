@@ -8,6 +8,12 @@ render/kernels/expand.py), per-pair tile decode, ONE stable sort of the i32
 key (tile << depth_keep_bits) | quantized depth, and CSR per-tile ranges.
 The output is bit-identical to the reference's BinnedSplats.
 
+Gradients: the pair table is a row selection of the packed per-gaussian
+table, so its backward (`_PairTable`) is one index_add_ of the table's
+cotangent rows by sorted gid, as the reference's VJP (binning.py:465-473,
+:727-738). Everything else here is integer work or detached, as in the
+reference (binning.py:136, :204).
+
 Not ported yet (utils/config.check_supported rejects them): row-bucket
 segmented binning, depth presort, the exact two-pass sort and the
 distributed row-strip arguments.
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gaussian_splat_ipu_tpu_torch.render.kernels import coverage, expand
 from gaussian_splat_ipu_tpu_torch.render.projection import ProjectedSplats
@@ -148,6 +155,40 @@ def _decode_key_sort(cols, rank, gid_pre, n, depth_keep_bits, ntx_key):
     return feats, key_s >> depth_keep_bits, gid_s
 
 
+def _expand_sort(packed, offsets_ext, p, depth_keep_bits, ntx_key):
+    """Kernel B + `_decode_key_sort`: packed (N+1, 16) -> (feats
+    (TABLE_ROWS, P), tile_s (P,) i32, gid_s (P,) i32)."""
+    cols, gid_pre, rank = expand.stream_expand(packed, offsets_ext, p)
+    return _decode_key_sort(cols, rank, gid_pre, packed.shape[0] - 1,
+                            depth_keep_bits, ntx_key)
+
+
+class _PairTable(torch.autograd.Function):
+    """`_expand_sort`, differentiable in `packed`: the backward adds each
+    pair's cotangent rows 0-9 into its gaussian's row (pads carry gid N,
+    the zero row) and gives the integer payload columns zero."""
+
+    @staticmethod
+    def forward(ctx, packed, offsets_ext, p, depth_keep_bits, ntx_key):
+        feats, tile_s, gid_s = _expand_sort(packed, offsets_ext, p,
+                                            depth_keep_bits, ntx_key)
+        ctx.save_for_backward(gid_s)
+        ctx.packed_shape = packed.shape
+        ctx.mark_non_differentiable(tile_s, gid_s)
+        return feats, tile_s, gid_s
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dfeat, _tile_s, _gid_s):
+        gid_s, = ctx.saved_tensors
+        rows, width = ctx.packed_shape
+        dbody = dfeat.new_zeros((rows, NUM_FEATURES)).index_add_(
+            0, gid_s, dfeat[:NUM_FEATURES].T)
+        dpacked = torch.cat([dbody, dbody.new_zeros(
+            (rows, width - NUM_FEATURES))], dim=1)
+        return dpacked, None, None, None, None
+
+
 def cell_footprints(splats: ProjectedSplats, cfg: RasterConfig):
     """(x0, y0, nx, ny) per gaussian in CELL units: tiles, or g x g tile
     groups when cfg.tile_group = g > 1 (a span inside one group is one
@@ -229,9 +270,11 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig) -> BinnedSplats:
 
     packed, offsets_ext = pack_gaussians(splats, cfg)
     total = offsets_ext[n]
-    cols, gid_pre, rank = expand.stream_expand(packed, offsets_ext, p)
-    feats, tile_s, gid_s = _decode_key_sort(cols, rank, gid_pre, n,
-                                            31 - tile_bits(cfg), ntx_key)
+    args = (packed, offsets_ext, p, 31 - tile_bits(cfg), ntx_key)
+    if torch.is_grad_enabled() and packed.requires_grad:
+        feats, tile_s, gid_s = _PairTable.apply(*args)
+    else:
+        feats, tile_s, gid_s = _expand_sort(*args)
 
     # Per-tile ranges; with tile groups every member tile points at its
     # group's range.

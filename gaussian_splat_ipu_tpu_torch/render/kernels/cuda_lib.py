@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under gaussian_splat_ipu_tpu_torch/csrc/*.cu have a plain C
-interface. At first use they are compiled by nvcc for sm_90a into one
-shared library, cached under gaussian_splat_ipu_tpu_torch/_build/<hash>/
-(the hash covers the sources and flags), and loaded with ctypes. Nothing
-is built or imported when this module is imported.
+interface. At first use each is compiled by its own nvcc process for
+sm_90a, all started together, and the objects are linked into one shared
+library, cached under gaussian_splat_ipu_tpu_torch/_build/<hash>/ (the
+hash covers the sources and flags) and loaded with ctypes. Nothing is
+built or imported when this module is imported.
 
 Every C entry launches on the stream it is given and returns
 cudaGetLastError(); `check` turns a non-zero code into an exception.
@@ -35,8 +36,7 @@ LIB_NAME = "libgsplat_cuda.so"
 # coverage-mask bits must match them exactly). -Xptxas=-v reports each
 # kernel's registers and shared memory into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -45,10 +45,15 @@ _SIGNATURES = {
     # packed, offsets_ext, n, p, cols, gid, rank, stream
     "gsplat_stream_expand": (_P, _P, _I, _I, _P, _P, _P, _P),
     # feats, p, starts, ends, num_tiles, tiles_x, tile_w, tile_h, chunk,
-    # max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2, relaxed, out,
+    # max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2, mode, out, nc,
     # stream
     "gsplat_rasterize_fwd": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _F, _F, _F, _F, _F, _I, _P, _P),
+                             _F, _F, _F, _F, _F, _F, _I, _P, _P, _P),
+    # feats, p, starts, ends, gout, t_n, nc, num_tiles, tiles_x, tile_w,
+    # tile_h, chunk, max_pairs, alpha_clamp, alpha_min, bg0, bg1, bg2,
+    # dfeat, stream
+    "gsplat_rasterize_bwd": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _F, _F, _F, _F, _P, _P),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -91,20 +96,39 @@ def _build() -> str:
         BuildInfo.seconds = 0.0
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + BuildInfo.log)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(BuildInfo.log)
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd))
+        tmp = os.path.join(work, LIB_NAME)
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append(proc.stdout)
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd))
+        BuildInfo.seconds = time.perf_counter() - t0
+        BuildInfo.log = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n"
+                               + BuildInfo.log)
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(BuildInfo.log)
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half
     return lib_path
 
 

@@ -1,7 +1,8 @@
 """Full render pipeline: project -> bin -> rasterize -> image (torch port of
 gaussian_splat_ipu_tpu/render/pipeline.py). On CUDA tensors binning and
 rasterization run the port's CUDA kernels; on CPU tensors their plain
-versions."""
+versions. Differentiable end to end in the model's parameters when they
+require grad (GaussianModel.trainable())."""
 
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def render(model: GaussianModel, camera: Camera, cfg: RasterConfig,
 
 def render_image(model: GaussianModel, camera: Camera,
                  cfg: RasterConfig) -> torch.Tensor:
-    """(H, W, 4) image only."""
+    """(H, W, 4) image only: the differentiable entry point for
+    training."""
     return render(model, camera, cfg).image
 
 

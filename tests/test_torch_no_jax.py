@@ -1,5 +1,6 @@
 """The port must run where JAX is absent: a subprocess blocks every `jax`
-import, imports the whole port and renders a tiny frame on the CPU."""
+import, imports the whole port, renders a tiny frame and takes one train
+step on the CPU."""
 
 import os
 import subprocess
@@ -39,6 +40,14 @@ CHILD = textwrap.dedent("""
     assert out.image.shape == (32, 48, 4)
     assert bool(torch.isfinite(out.image).all())
     assert int(out.num_pairs) > 0
+
+    from gaussian_splat_ipu_tpu_torch.train import trainer
+    tc = trainer.TrainConfig()
+    state = trainer.init_state(model.trainable(), tc)
+    state, loss = trainer.train_step(state, cam, out.image * 0.5, cfg, tc)
+    assert bool(torch.isfinite(loss)) and float(loss) > 0.0
+    assert int(state.step) == 1
+    assert not torch.equal(state.params.means, model.means)
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
     print("OK")
 """)

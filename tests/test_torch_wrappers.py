@@ -15,7 +15,7 @@ from gaussian_splat_ipu_tpu_torch.render.kernels import (coverage, cuda_lib,
                                                          expand, rasterize)
 from gaussian_splat_ipu_tpu_torch.render.projection import project_gaussians
 from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
-    rasterize_tiles_torch)
+    rasterize_backward_torch, rasterize_tiles_torch)
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
 torch.set_num_threads(1)
@@ -91,7 +91,23 @@ def test_kernels_match_plain_versions_on_the_card():
             got = rasterize.rasterize_tiles(binned, cfg)
             want = rasterize_tiles_torch(binned, cfg)
             assert float((got - want).abs().max()) <= 1e-5
+        tiles, nc = rasterize.rasterize_tiles_aux(binned, CFG)
+        want, want_nc = rasterize_tiles_torch(binned, CFG, need_aux=True)
+        assert float((tiles - want).abs().max()) <= 1e-5
+        assert torch.equal(nc, want_nc)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        args = (binned.features, binned.tile_starts, binned.tile_ends,
+                torch.randn(want.shape, generator=gen, device="cuda"),
+                1.0 - want[..., 3], want_nc, CFG)
+        got = rasterize.rasterize_backward(*args)
+        ref = rasterize_backward_torch(*args)
+        # Atomics reorder the sums: bound each row by its own scale.
+        bound = (1e-4 * ref.abs().amax(dim=1, keepdim=True)
+                 + 1e-3 * ref.abs())
+        assert bool(((got - ref).abs() <= bound).all())
         torch.cuda.synchronize()
     assert cuda_lib.launches == {"coverage_masks": 1, "stream_expand": 1,
                                  "rasterize_strict": 1,
-                                 "rasterize_relaxed": 1}
+                                 "rasterize_relaxed": 1,
+                                 "rasterize_strict_aux": 1,
+                                 "rasterize_bwd": 1}
