@@ -10,12 +10,15 @@ Phases, each printing its own lines:
      TF32 off;
   2. each CUDA kernel against its plain PyTorch version on the card, on
      inputs the port's own projection and binning make at main-path
-     shapes: coverage masks and stream expansion exactly equal; the
-     forward rasterizer (strict, relaxed, strict with contributor counts)
-     within 1e-5, the counts exactly equal; the backward rasterizer within
-     a bound scaled to each gradient row (TOL_BWD_*); CUDA-event medians
-     of each kernel and each plain version. Then, on a small scene, the
-     CUDA binning, rasterizer, pair-table gradient and model gradients
+     shapes: coverage masks, stream expansion (flat, and segmented at the
+     rowseg 1M config), the row scan (rowseg 1M) and expand_pairs (the
+     1M table through the gather expansion) exactly equal; the forward
+     rasterizer (strict, relaxed, strict with contributor counts) within
+     1e-5, the counts exactly equal; the backward rasterizer within a
+     bound scaled to each gradient row (TOL_BWD_*); CUDA-event medians of
+     each kernel and each plain version. Then, on a small scene, the CUDA
+     binning (flat, rowseg R = 2 and 3, the three gather paths; tables
+     bit-identical), rasterizer, pair-table gradient and model gradients
      against the CPU path;
   3. the app's render loop (app/main.py) on a seeded 37,941-gaussian PLY
      at 1280x720, 8 orbit frames, demand-probed capacity, its default
@@ -27,8 +30,17 @@ Phases, each printing its own lines:
      same model at angle 0, capacity 1.15x that view's demand, L1 loss;
   6. the train app (app/train.py) in distill mode on the 37,941-gaussian
      PLY at 640x360 over 8 orbit views, with a checkpoint that a second
-     run resumes for one more step.
-The launch counters are zeroed just before each of phases 3-6 and read
+     run resumes for one more step;
+  7. rowseg 1M: benchmarks/bench_1m.py's balanced row-bucket config
+     (tile_group=2, exact_tile_test, strict; bounds from balance_bounds
+     over the worst bucket demands of 4 orbit views, R and per-bucket
+     capacity by its recipe): 3 orbit frames, held to the flat path's
+     images, then 2 train steps;
+  8. the app with --rowseg 4 at its default --pair-capacity, 8 frames;
+  9. the gather paths at 1M: one frame each with presort_depth,
+     fused_sort_key=False (the exact two-pass sort) and
+     expand_kernel=False.
+The launch counters are zeroed just before each of phases 3-9 and read
 just after it: every kernel must have carried the path that uses it.
 Then one JSON line of per-kernel results, the card line, and last the
 status line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -63,6 +75,15 @@ TRAIN_VIEWS = 8
 TRAIN_STEPS_APP = 3 * TRAIN_VIEWS
 TRAIN_STEPS_1M = 4
 SEED = 0
+# benchmarks/bench_1m.py:135-171, the balanced rowseg recipe: bucket
+# demands probed at orbit steps 0, 4, 8, 12 of 11.25 deg; buckets under
+# the batched sort's 2^18 pow2 step with 8% slack; no bucket lighter than
+# min_sum (the TPU kernel's source-window bound, kept for the same layout).
+RS_PROBE_ANGLES = (0.0, 45.0, 90.0, 135.0)
+RS_CAP_TARGET = 1 << 18
+RS_SLACK = 1.08
+RS_FRAMES = 3
+RS_TRAIN_STEPS = 2
 KERNEL_SOURCES = {
     "coverage_masks": ("coverage.cu", "render/kernels/coverage.py:106"),
     "stream_expand": ("expand.cu", "render/kernels/expand.py:338"),
@@ -72,6 +93,9 @@ KERNEL_SOURCES = {
     "rasterize_strict_aux": ("rasterize.cu",
                              "render/kernels/rasterize.py:287"),
     "rasterize_bwd": ("rasterize_bwd.cu", "render/kernels/rasterize.py:573"),
+    "row_cumsum_exclusive": ("scan.cu", "render/kernels/scan.py:51"),
+    "stream_expand_seg": ("expand.cu", "render/kernels/expand.py:338"),
+    "expand_pairs": ("expand_pairs.cu", "render/kernels/expand.py:121"),
 }
 
 
@@ -180,6 +204,40 @@ def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int):
                              reps=plain_reps))
 
 
+def rowseg_config(binning, project, model, cam_of, cfg0):
+    """bench_1m.py's `_rowseg_balanced` (:135-171) on the port: the worst
+    per-group-row demand over RS_PROBE_ANGLES, the fewest buckets R whose
+    balanced partition keeps every bucket within RS_CAP_TARGET / RS_SLACK,
+    and a per-bucket capacity of the worst bucket's demand x RS_SLACK,
+    2048-aligned. Returns (cfg, info). If no R under 17 meets the target
+    the largest R tried is kept and info says so."""
+    import torch
+    rd = torch.stack([binning.bucket_demands(project(model, cam_of(a), cfg0),
+                                             cfg0)
+                      for a in RS_PROBE_ANGLES]).amax(0).cpu().numpy()
+    total = int(rd.sum())
+    min_sum = int(2048 * model.num_gaussians / 16384 * 1.25)
+    r_first = max(2, -(-int(total * RS_SLACK) // RS_CAP_TARGET))
+    tried = None
+    for r_try in range(r_first, min(len(rd), 17)):
+        b = binning.balance_bounds(rd, r_try, min_sum=min_sum)
+        sums = [int(rd[b[i]:b[i + 1]].sum()) for i in range(r_try)]
+        tried = (r_try, b, sums)
+        if int(max(sums) * RS_SLACK) <= RS_CAP_TARGET:
+            break
+    if tried is None:
+        fail(f"rowseg 1M: {len(rd)} group rows leave no bucket count to try")
+    r_seg, bounds, sums = tried
+    cap = max(-(-int(max(sums) * RS_SLACK) // 2048) * 2048, 2048)
+    cfg = dataclasses.replace(cfg0, rowseg_buckets=r_seg,
+                              rowseg_bounds=bounds, pair_capacity=r_seg * cap)
+    return cfg, dict(
+        R=r_seg, bounds=list(bounds), row_demands=[int(x) for x in rd],
+        bucket_demands=sums, total_demand=total, min_sum=min_sum,
+        cap_seg=cap, cap_target_met=int(max(sums) * RS_SLACK)
+        <= RS_CAP_TARGET)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -192,7 +250,7 @@ def main() -> int:
         FIELDS, GaussianModel)
     from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
     from gaussian_splat_ipu_tpu_torch.render.kernels import (
-        coverage, cuda_lib, expand, rasterize)
+        coverage, cuda_lib, expand, rasterize, scan)
     from gaussian_splat_ipu_tpu_torch.render.projection import (
         project_gaussians)
     from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
@@ -261,6 +319,12 @@ def main() -> int:
             cfg_1m, pair_capacity=capacity(demand[0], c))
         cfg_1m = dataclasses.replace(cfg_1m,
                                      pair_capacity=capacity(max(demand), c))
+        cfg_rs, rs_info = rowseg_config(
+            binning, project_gaussians, model_1m, cam_1m,
+            RasterConfig(image_width=WIDTH, image_height=HEIGHT,
+                         pair_capacity=1 << 22, tile_group=2,
+                         exact_tile_test=True))
+        say("rowseg_1m_config", **rs_info)
 
         # -- 2. kernels against their plain versions ------------------------
         results = {}
@@ -293,6 +357,47 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: expand.stream_expand_torch(
                 packed, offs, p)))
 
+        # The three kernels of the rowseg and gather paths: the row scan
+        # and the segmented expansion at the rowseg 1M config's angle-0
+        # frame, expand_pairs on the 1M g=3 table through the gather
+        # expansion (expand_kernel=False).
+        splats_rs = project_gaussians(model_1m, cam_1m(0.0), cfg_rs)
+        lay = binning.rowseg_layout(binning.footprints(splats_rs, cfg_rs),
+                                    cfg_rs)
+        got = scan.row_cumsum_exclusive(lay.counts)
+        ref = scan.row_cumsum_exclusive_torch(lay.counts)
+        torch.cuda.synchronize()
+        results["row_cumsum_exclusive"] = result(
+            "row_cumsum_exclusive",
+            max_abs_err=exact_err("row_cumsum_exclusive", ("excl",), (got,),
+                                  (ref,)),
+            ms=cuda_ms(lambda: scan.row_cumsum_exclusive(lay.counts)),
+            plain_ms=cuda_ms(lambda: scan.row_cumsum_exclusive_torch(
+                lay.counts)))
+        seg_args = (binning.pack_gaussians(splats_rs, cfg_rs)[0], lay.offs,
+                    lay.offs2, lay.live_end, lay.cap)
+        got = expand.stream_expand_seg(*seg_args)
+        ref = expand.stream_expand_seg_torch(*seg_args)
+        torch.cuda.synchronize()
+        results["stream_expand_seg"] = result(
+            "stream_expand_seg",
+            max_abs_err=exact_err("stream_expand_seg", ("cols", "gid",
+                                                        "rank"), got, ref),
+            ms=cuda_ms(lambda: expand.stream_expand_seg(*seg_args)),
+            plain_ms=cuda_ms(lambda: expand.stream_expand_seg_torch(
+                *seg_args)))
+        gid_pre, _ = binning.gather_slots(offs, p)
+        got = expand.expand_pairs(packed, gid_pre)
+        ref = expand.expand_pairs_torch(packed, gid_pre)
+        torch.cuda.synchronize()
+        results["expand_pairs"] = result(
+            "expand_pairs",
+            max_abs_err=exact_err("expand_pairs", ("cols",), (got,), (ref,)),
+            ms=cuda_ms(lambda: expand.expand_pairs(packed, gid_pre)),
+            plain_ms=cuda_ms(lambda: expand.expand_pairs_torch(packed,
+                                                               gid_pre)))
+        del splats_rs, seg_args, got, ref
+
         cfg_app = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
                                pair_capacity=1 << 19,
                                strict_termination=False)
@@ -322,7 +427,12 @@ def main() -> int:
             "rasterize_strict": f"T={binned_1m.tile_starts.shape[0]},"
                                 f"pairs={int(binned_1m.num_pairs)},g=3",
             "rasterize_relaxed": f"T={binned_app.tile_starts.shape[0]},"
-                                 f"pairs={int(binned_app.num_pairs)},g=1"}
+                                 f"pairs={int(binned_app.num_pairs)},g=1",
+            "row_cumsum_exclusive": f"R={lay.counts.shape[0]},"
+                                    f"N={lay.counts.shape[1]}",
+            "stream_expand_seg": f"N={lay.offs.shape[1]},"
+                                 f"R={lay.offs.shape[0]},cap={lay.cap}",
+            "expand_pairs": f"N={packed.shape[0] - 1},P={p},g=3"}
         for name, shape in shapes.items():
             say("kernel", shape=shape, **results[name])
 
@@ -363,17 +473,27 @@ def main() -> int:
 
         # The CUDA binning and rasterizer on a small scene against the CPU
         # spec (which the CPU tests hold to the JAX package), from the same
-        # projected splats: tables bit-identical, images within 1e-5, the
-        # pair-table gradient within the backward's bound.
+        # projected splats, on every binning path: tables bit-identical,
+        # images within 1e-5, the pair-table gradient within the
+        # backward's bound.
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         small = GaussianModel.random(2000, generator=gen, device=dev)
         small_cfgs = []
-        for g, exact in ((1, False), (3, True)):
-            cfg_s = RasterConfig(image_width=160, image_height=96,
+        cfg_small = RasterConfig(image_width=160, image_height=96,
                                  tile_width=16, tile_height=16,
-                                 chunk_size=32, pair_capacity=1 << 14,
-                                 tile_group=g, exact_tile_test=exact)
-            small_cfgs.append(cfg_s)
+                                 chunk_size=32, pair_capacity=1 << 14)
+        for change in (dict(), dict(tile_group=3, exact_tile_test=True),
+                       dict(rowseg_buckets=2),
+                       dict(exact_tile_test=True, rowseg_buckets=3),
+                       dict(tile_group=3, exact_tile_test=True,
+                            rowseg_buckets=2),
+                       dict(presort_depth=True),
+                       dict(fused_sort_key=False, exact_tile_test=True),
+                       dict(expand_kernel=False, tile_group=3,
+                            exact_tile_test=True)):
+            cfg_s = dataclasses.replace(cfg_small, **change)
+            label = ",".join(f"{k}={v}" for k, v in change.items()) or "flat"
+            small_cfgs.append((label, cfg_s))
             cam_s = Camera.orbit(-np.ones(3), np.ones(3), fov, 160 / 96,
                                  rot_y_deg=30.0, device=dev)
             sp = project_gaussians(small, cam_s, cfg_s)
@@ -383,31 +503,32 @@ def main() -> int:
             for f in b_gpu._fields:
                 if not torch.equal(getattr(b_gpu, f).cpu(),
                                    getattr(b_cpu, f)):
-                    fail(f"small scene g={g}: BinnedSplats.{f} on CUDA "
+                    fail(f"small scene {label}: BinnedSplats.{f} on CUDA "
                          "differs from the CPU spec")
             err = float((rasterize.rasterize_tiles(b_gpu, cfg_s).cpu()
                          - rasterize_tiles_torch(b_cpu, cfg_s)).abs().max())
             if err > TOL_RASTER:
-                fail(f"small scene g={g}: CUDA image differs from the CPU "
+                fail(f"small scene {label}: CUDA image differs from the CPU "
                      f"spec by {err}")
             tiles, nc = rasterize_tiles_torch(b_cpu, cfg_s, need_aux=True)
             cot = torch.randn(tiles.shape, generator=torch.Generator(
-                ).manual_seed(g))
+                ).manual_seed(len(small_cfgs)))
             args = (1.0 - tiles[..., 3], nc, cfg_s)
             dfeat = rasterize.rasterize_backward(
                 b_gpu.features, b_gpu.tile_starts, b_gpu.tile_ends,
                 cot.to(dev), *(a.to(dev) for a in args[:2]), cfg_s)
-            dfeat_err = bwd_err(f"small scene g={g} dfeat", dfeat.cpu(),
+            dfeat_err = bwd_err(f"small scene {label} dfeat", dfeat.cpu(),
                                 rasterize_backward_torch(
                                     b_cpu.features, b_cpu.tile_starts,
                                     b_cpu.tile_ends, cot, *args))
-            say("small_scene_vs_cpu", tile_group=g, exact_tile_test=exact,
-                pairs=int(b_cpu.num_pairs), binned_identical=True,
-                max_abs_err=err, dfeat_max_abs_err=dfeat_err)
+            say("small_scene_vs_cpu", config=label,
+                pairs=int(b_cpu.num_pairs), table=b_cpu.features.shape[1],
+                binned_identical=True, max_abs_err=err,
+                dfeat_max_abs_err=dfeat_err)
 
     # Model gradients of the whole differentiable render, CUDA against the
     # CPU path, from the same weights and the same pixel weights.
-    for cfg_s in small_cfgs:
+    for label, cfg_s in small_cfgs:
         cam_s = Camera.orbit(-np.ones(3), np.ones(3), fov, 160 / 96,
                              rot_y_deg=30.0, device="cpu")
         w = torch.randn((96, 160, 4), generator=torch.Generator(
@@ -419,12 +540,11 @@ def main() -> int:
                              * w.to(d))
             loss.backward()
             grads[d.type] = {k: getattr(m, k).grad.cpu() for k in FIELDS}
-        errs = {k: bwd_err(f"small scene g={cfg_s.tile_group} d{k}",
+        errs = {k: bwd_err(f"small scene {label} d{k}",
                            grads["cuda"][k].reshape(len(small.means), -1)
                            .T, grads["cpu"][k].reshape(len(small.means), -1)
                            .T) for k in FIELDS}
-        say("small_scene_grads_vs_cpu", tile_group=cfg_s.tile_group,
-            max_abs_err=errs)
+        say("small_scene_grads_vs_cpu", config=label, max_abs_err=errs)
 
     # -- 3. the app ---------------------------------------------------------
     launches = {}
@@ -572,6 +692,129 @@ def main() -> int:
         checkpoint_bytes=os.path.getsize(ckpt),
         resumed_step=resumed["step"], resumed_loss=resumed["losses"][0],
         launches=launches["train_app"])
+
+    # -- 7. rowseg 1M ---------------------------------------------------------
+    def rowseg_1m():
+        frame_ms, images, out = [], [], None
+        with torch.inference_mode():
+            for a in angles_1m[:RS_FRAMES]:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = pipeline.render(model_1m, cam_1m(a), cfg_rs)
+                end.record()
+                end.synchronize()
+                frame_ms.append(start.elapsed_time(end))
+                if int(out.overflow) or not bool(
+                        torch.isfinite(out.image).all()):
+                    fail(f"rowseg 1M frame at {a} deg: overflow "
+                         f"{int(out.overflow)} or non-finite pixels")
+                images.append(out.image)
+            target_out = pipeline.render(model_1m, cam0, cfg_rs)
+        target = target_out.image.clone()
+        state = trainer.init_state(model_1m.trainable(), tc_1m)
+        step_ms, losses = [], []
+        for _ in range(RS_TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, loss = trainer.train_step(state, cam0, target, cfg_rs, tc_1m)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        with torch.inference_mode():
+            after = pipeline.render(state.params, cam0, cfg_rs)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in state.params.parameters())
+        return dict(frame_ms=frame_ms, images=images, out=out,
+                    target_overflow=int(target_out.overflow),
+                    after_overflow=int(after.overflow), step_ms=step_ms,
+                    losses=losses, params_finite=finite)
+
+    rs, launches["rowseg_1m"] = counted(cuda_lib, rowseg_1m)
+    need_launches("rowseg 1M", launches["rowseg_1m"],
+                  ("coverage_masks", "row_cumsum_exclusive",
+                   "stream_expand_seg", "rasterize_strict",
+                   "rasterize_strict_aux", "rasterize_bwd"), RS_TRAIN_STEPS)
+    if not (np.isfinite(rs["losses"]).all() and rs["params_finite"]):
+        fail(f"rowseg 1M train: non-finite loss or parameters: "
+             f"{rs['losses']}")
+    if rs["target_overflow"] or rs["after_overflow"]:
+        fail(f"rowseg 1M train dropped pairs: overflow "
+             f"{rs['target_overflow']} before, {rs['after_overflow']} after")
+    cfg_rs_flat = dataclasses.replace(cfg_rs, rowseg_buckets=1,
+                                      rowseg_bounds=())
+    with torch.inference_mode():
+        flat_err = max(float((pipeline.render(model_1m, cam_1m(a),
+                                              cfg_rs_flat).image
+                              - img).abs().max())
+                       for a, img in zip(angles_1m, rs["images"]))
+    if flat_err > TOL_RASTER:
+        fail(f"rowseg 1M frames differ from the flat path's by {flat_err}")
+    say("rowseg_1m", gaussians=N_1M, R=rs_info["R"],
+        bounds=rs_info["bounds"], bucket_demands=rs_info["bucket_demands"],
+        cap_seg=rs_info["cap_seg"], table=cfg_rs.pair_capacity,
+        num_pairs=int(rs["out"].num_pairs), overflow=int(rs["out"].overflow),
+        truncated=int(rs["out"].truncated),
+        max_abs_diff_vs_flat=flat_err, frame_ms=rs["frame_ms"],
+        losses=rs["losses"], step_ms=rs["step_ms"],
+        target_overflow=rs["target_overflow"],
+        after_overflow=rs["after_overflow"], launches=launches["rowseg_1m"])
+    del rs
+
+    # -- 8. the app with --rowseg 4 -----------------------------------------
+    out_rs_png = os.path.join(tmp, "app_rowseg.png")
+    stats_rs, launches["app_rowseg"] = counted(cuda_lib, lambda: app_main.run([
+        "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
+        "--frames", "8", "--rowseg", "4", "--device", "cuda",
+        "--output", out_rs_png, "--log-level", "warn"]))
+    need_launches("app --rowseg 4", launches["app_rowseg"],
+                  ("row_cumsum_exclusive", "stream_expand_seg",
+                   "rasterize_relaxed"), 8)
+    if stats_rs["overflow"] or stats_rs["truncated"]:
+        fail(f"app --rowseg 4 dropped pairs: {stats_rs}")
+    img_rs = image_util.decode_png(open(out_rs_png, "rb").read())
+    say("app_rowseg", rowseg=4, frames=stats_rs["frames"],
+        pair_capacity=stats_rs["pair_capacity"],
+        num_pairs=stats_rs["num_pairs"], overflow=stats_rs["overflow"],
+        truncated=stats_rs["truncated"],
+        median_frame_ms=stats_rs["median_ms"],
+        frame_ms=stats_rs["frame_ms"],
+        png_max_abs_diff_vs_flat_app=int(np.abs(
+            img_rs.astype(np.int32) - img.astype(np.int32)).max()),
+        launches=launches["app_rowseg"])
+
+    # -- 9. the gather paths at 1M ------------------------------------------
+    with torch.inference_mode():
+        flat_img = pipeline.render(model_1m, cam0, cfg_1m).image
+    for name, change in (("presort", dict(presort_depth=True)),
+                         ("exact_sort", dict(fused_sort_key=False)),
+                         ("gather_expansion", dict(expand_kernel=False))):
+        cfg_g = dataclasses.replace(cfg_1m, **change)
+
+        def frame(cfg_g=cfg_g):
+            with torch.inference_mode():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                o = pipeline.render(model_1m, cam0, cfg_g)
+                end.record()
+                end.synchronize()
+            return o, start.elapsed_time(end)
+
+        (o, ms), launches[f"1m_{name}"] = counted(cuda_lib, frame)
+        need_launches(f"1M {name}", launches[f"1m_{name}"],
+                      ("coverage_masks", "expand_pairs", "rasterize_strict"),
+                      1)
+        if int(o.overflow) or not bool(torch.isfinite(o.image).all()):
+            fail(f"1M {name} frame: overflow {int(o.overflow)} or "
+                 "non-finite pixels")
+        say("gather_1m", path=name, frame_ms=ms,
+            num_pairs=int(o.num_pairs), overflow=int(o.overflow),
+            truncated=int(o.truncated),
+            max_abs_diff_vs_default=float((o.image - flat_img).abs().max()),
+            launches=launches[f"1m_{name}"])
 
     for name, r in results.items():
         r["launches"] = sum(path.get(name, 0) for path in launches.values())

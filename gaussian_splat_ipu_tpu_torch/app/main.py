@@ -72,7 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--tile-group", type=int, default=1,
                    help="bin pairs over KxK super-tiles (1 = off)")
     p.add_argument("--rowseg", type=int, default=1,
-                   help="segmented binning; not ported yet (1 = off)")
+                   help="row-bucket segmented binning into N buckets of "
+                        "--pair-capacity / N pairs each (1 = off)")
     p.add_argument("--antialias", action="store_true",
                    help="energy-conserving lowpass (Mip-Splatting)")
     p.add_argument("--strict-termination", action="store_true",
@@ -86,7 +87,6 @@ def parse_args(argv=None):
                                   "renderer)"),
         (args.ui_port != 0, "--ui-port (the remote UI server)"),
         (args.distributed > 1, "--distributed (multi-device rendering)"),
-        (args.rowseg > 1, "--rowseg > 1 (segmented binning)"),
     ) if bad]
     if unported:
         p.error("not ported to the torch package yet: "
@@ -151,6 +151,7 @@ def run(argv=None) -> dict:
                            exact_tile_test=args.exact_tiles,
                            antialias=args.antialias,
                            tile_group=args.tile_group,
+                           rowseg_buckets=args.rowseg,
                            strict_termination=args.strict_termination)
         check_supported(cfg)
         if args.dump_frames:

@@ -76,8 +76,6 @@ _UNPORTED = (
      "Training extras: train/appearance.py, train/aux_opt.py"),
     ("depth_loss", 0.0, "--depth-loss (SfM depth supervision)",
      "Training extras: train/depth.py"),
-    ("rowseg", 1, "--rowseg > 1 (segmented binning)",
-     "Row-bucket segmented binning"),
     ("export_splat", "", "--export-splat (.splat output)",
      "Oracle, other IO and apps: io/splat.py"),
     ("sh_step_every", 0, "--sh-step-every (progressive SH schedule)",
@@ -137,7 +135,9 @@ def parse_args(argv=None):
                         "identical image)")
     p.add_argument("--tile-group", type=int, default=1,
                    help="bin pairs over KxK super-tiles (1 = off)")
-    p.add_argument("--rowseg", type=int, default=1, help="not ported yet")
+    p.add_argument("--rowseg", type=int, default=1,
+                   help="row-bucket segmented binning into N buckets of "
+                        "--pair-capacity / N pairs each (1 = off)")
     p.add_argument("--antialias", action="store_true",
                    help="energy-conserving lowpass (Mip-Splatting)")
     p.add_argument("--checkpoint", default="",
@@ -200,7 +200,7 @@ def run(argv=None) -> dict:
                        pair_capacity=args.pair_capacity,
                        exact_tile_test=args.exact_tiles,
                        antialias=args.antialias, tile_group=args.tile_group,
-                       background=(bg, bg, bg))
+                       rowseg_buckets=args.rowseg, background=(bg, bg, bg))
     check_supported(cfg)
     fov = float(np.radians(40.0))
     aspect = args.width / args.height

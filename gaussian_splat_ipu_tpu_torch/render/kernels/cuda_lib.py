@@ -44,6 +44,13 @@ _SIGNATURES = {
     "gsplat_coverage_masks": (_P, _P, _I, _F, _F, _F, _P, _P),
     # packed, offsets_ext, n, p, cols, gid, rank, stream
     "gsplat_stream_expand": (_P, _P, _I, _I, _P, _P, _P, _P),
+    # packed, offs, offs2, live_end, n, r, cap, cols, gid, rank, stream
+    "gsplat_stream_expand_seg": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                 _P),
+    # packed, gid, p, cols, stream
+    "gsplat_expand_pairs": (_P, _P, _I, _P, _P),
+    # x, r, n, out, stream
+    "gsplat_row_cumsum_exclusive": (_P, _I, _I, _P, _P),
     # feats, p, starts, ends, num_tiles, tiles_x, tile_w, tile_h, chunk,
     # max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2, mode, out, nc,
     # stream

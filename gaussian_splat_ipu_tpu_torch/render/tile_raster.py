@@ -79,7 +79,8 @@ def rasterize_tiles_torch(binned: B.BinnedSplats, cfg: RasterConfig,
     relaxed = not (cfg.strict_termination or need_aux)
     starts, ends = _clipped_ranges(binned.tile_starts, binned.tile_ends, cfg)
     num_tiles = starts.shape[0]
-    # One zero chunk past the end keeps every chunk window in bounds.
+    # One zero chunk past the end; the windows of tiles whose own range
+    # ended earlier (masked by `valid`) are clamped into it.
     table = torch.cat([feats[:B.FEAT_OPACITY + 1],
                        feats.new_zeros((B.FEAT_OPACITY + 1, c))], dim=1)
     px, py = _tile_pixels(cfg, num_tiles, device)           # (T, NPIX)
@@ -103,7 +104,7 @@ def rasterize_tiles_torch(binned: B.BinnedSplats, cfg: RasterConfig,
         m = int(valid.sum(dim=1).max())
         if m == 0:
             break
-        chunk = table[:, idx[:, :m]]                        # (9, T, m)
+        chunk = table[:, idx[:, :m].clamp_max(table.shape[1] - 1)]
         for j in range(m):
             gx, gy, ca, cb, cc, r, g, b, op = (
                 v[:, None] for v in chunk[:, :, j])         # (T, 1) each

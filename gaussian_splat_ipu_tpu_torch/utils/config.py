@@ -1,6 +1,6 @@
 """Renderer configuration: the reference's jax-free `RasterConfig`, shared
 so that one config drives both packages in every parity test, plus the
-check that rejects the options this port does not carry yet."""
+check that rejects the settings the reference rejects."""
 
 from __future__ import annotations
 
@@ -23,30 +23,17 @@ def tile_bits(cfg: RasterConfig) -> int:
 
 
 def check_supported(cfg: RasterConfig) -> None:
-    """Raise NotImplementedError for a setting this port does not carry.
-
-    Each of these is a path of the JAX package that is still to be ported
-    (ROADMAP.md); nothing here is declared unnecessary."""
-    unported = []
-    if cfg.rowseg_buckets > 1:
-        unported.append(f"rowseg_buckets={cfg.rowseg_buckets} (row-bucket "
-                        "segmented binning)")
-    if cfg.presort_depth:
-        unported.append("presort_depth=True (depth-presorted binning)")
-    if not cfg.fused_sort_key:
-        unported.append("fused_sort_key=False (exact two-pass sort)")
-    if not cfg.expand_kernel:
-        unported.append("expand_kernel=False (gather expansion A/B)")
+    """Raise ValueError for a setting the JAX package refuses too: its
+    bin_splats asserts footprints of at most 32 cells per axis and tile
+    axes of at most 4096 tiles (render/binning.py:836-837), the bit
+    budget of the packed geometry (x0, y0: 12 bits; nx: 6 bits)."""
+    bad = []
     if cfg.max_tiles_per_axis > 32:
-        unported.append(f"max_tiles_per_axis={cfg.max_tiles_per_axis} > 32")
+        bad.append(f"max_tiles_per_axis={cfg.max_tiles_per_axis} > 32")
     if cfg.tiles_x > 4096 or cfg.tiles_y > 4096:
-        unported.append(f"a {cfg.tiles_x}x{cfg.tiles_y} tile grid (an axis "
-                        "over 4096 tiles)")
-    if 31 - tile_bits(cfg) < 16:
-        unported.append(f"a tile grid needing {tile_bits(cfg)} key bits "
-                        "(fewer than 16 depth bits left: the reference's "
-                        "exact two-pass sort)")
-    if unported:
-        raise NotImplementedError(
-            "gaussian_splat_ipu_tpu_torch does not port "
-            + "; ".join(unported) + " yet")
+        bad.append(f"a {cfg.tiles_x}x{cfg.tiles_y} tile grid (an axis over "
+                   "4096 tiles)")
+    if bad:
+        raise ValueError("; ".join(bad) + ": outside the packed binning "
+                         "geometry, which the JAX package refuses too "
+                         "(render/binning.py:836-837)")

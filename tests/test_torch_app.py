@@ -1,7 +1,7 @@
 """The port's CLI (gaussian_splat_ipu_tpu_torch.app.main) on the CPU: the
 PNG it writes equals the port's render at the app's camera, the demand
-probe sizes the table, unported flags are refused, and scene loading
-matches the JAX package's."""
+probe sizes the table, --rowseg renders the flat path's PNG, unported flags
+are refused, and scene loading matches the JAX package's."""
 
 import os
 
@@ -67,9 +67,24 @@ def test_cli_probe_frames_and_dump(ply, tmp_path):
                                           for i in range(3)]
 
 
+def test_cli_rowseg_png_matches_flat(ply, tmp_path):
+    """--rowseg 2 bins into two row buckets; every tile's pairs and their
+    order are the flat path's, so the PNG is the same."""
+    pngs = []
+    for rowseg in ("1", "2"):
+        out = str(tmp_path / f"rowseg{rowseg}.png")
+        stats = app.run(["--input", ply, "--width", "96", "--height", "64",
+                         "--device", "cpu", "--output", out, "--frames", "2",
+                         "--pair-capacity", "8192", "--rowseg", rowseg,
+                         "--log-level", "warn"])
+        assert stats["overflow"] == 0 and stats["num_pairs"] > 0
+        pngs.append(decode_png(open(out, "rb").read()))
+    np.testing.assert_array_equal(pngs[1], pngs[0])
+    assert pngs[1][..., 3].max() > 0
+
+
 @pytest.mark.parametrize("flags", [
-    ["--device", "points"], ["--ui-port", "9000"], ["--distributed", "4"],
-    ["--rowseg", "2"]])
+    ["--device", "points"], ["--ui-port", "9000"], ["--distributed", "4"]])
 def test_cli_rejects_unported_flags(ply, flags, capsys):
     with pytest.raises(SystemExit) as e:
         app.parse_args(["--input", ply] + flags)

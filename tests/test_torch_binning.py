@@ -1,6 +1,6 @@
-"""Binning parity: the torch port's bin_splats, its plain expansion and its
-plain coverage masks against the JAX package, bit for bit, on the same
-projected splats."""
+"""Binning parity: the torch port's bin_splats on every path, its plain
+expansion and its plain coverage masks against the JAX package, bit for
+bit, on the same projected splats."""
 
 import dataclasses
 
@@ -178,16 +178,39 @@ def test_decode_tiles_matches_jax():
 @pytest.mark.parametrize("change", [
     dict(rowseg_buckets=2), dict(presort_depth=True),
     dict(fused_sort_key=False), dict(expand_kernel=False),
-    dict(max_tiles_per_axis=33), dict(image_width=4097 * 32),
-    dict(image_width=2048 * 32, image_height=2048 * 32)])
-def test_unported_options_are_rejected(change):
+    dict(image_width=4096, image_height=1024, tile_width=8, tile_height=8)])
+def test_other_binning_paths_bit_identical(change, monkeypatch):
+    """Row-bucket segmented binning, the depth presort, the exact two-pass
+    sort (asked for, or forced by a 512x128 tile grid that leaves 13 depth
+    bits, tests/test_binning.py:233) and the gather expansion, each
+    bit-identical to the JAX package. The reference bins rowseg on the
+    CPU only under FORCE_EXPAND_KERNEL, with its interpreter's 256-slot
+    bucket alignment (binning.py:495-496)."""
+    monkeypatch.setattr(jbin, "FORCE_EXPAND_KERNEL", True)
+    monkeypatch.setattr(binning, "SEG_ALIGN", 256)
     cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError, match="does not port"):
+    js = jax_splats(0, 1500, cfg)
+    want = jbin.bin_splats(js, cfg)
+    got = binning.bin_splats(to_torch(js), cfg)
+    assert_binned_equal(want, got)
+    assert int(got.num_pairs) > 1000
+
+
+@pytest.mark.parametrize("change", [
+    dict(max_tiles_per_axis=33), dict(image_width=4097 * 32)])
+def test_unported_options_are_rejected(change):
+    """What the JAX package refuses too (binning.py:836-837)."""
+    cfg = dataclasses.replace(CFG, **change)
+    with pytest.raises(ValueError, match="JAX package refuses"):
         check_supported(cfg)
 
 
 def test_supported_defaults_pass_the_check():
     for cfg in (RasterConfig(), dataclasses.replace(
             CFG, tile_group=3, exact_tile_test=True,
-            strict_termination=False, antialias=True)):
+            strict_termination=False, antialias=True),
+            RasterConfig(rowseg_buckets=4),
+            RasterConfig(presort_depth=True),
+            RasterConfig(fused_sort_key=False),
+            RasterConfig(expand_kernel=False)):
         check_supported(cfg)

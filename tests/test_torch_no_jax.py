@@ -1,6 +1,6 @@
 """The port must run where JAX is absent: a subprocess blocks every `jax`
-import, imports the whole port, renders a tiny frame and takes one train
-step on the CPU."""
+import, imports the whole port, renders a tiny frame, bins it into row
+buckets and takes one train step on the CPU."""
 
 import os
 import subprocess
@@ -40,6 +40,15 @@ CHILD = textwrap.dedent("""
     assert out.image.shape == (32, 48, 4)
     assert bool(torch.isfinite(out.image).all())
     assert int(out.num_pairs) > 0
+
+    import dataclasses
+    from gaussian_splat_ipu_tpu_torch.render import binning
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    seg = binning.bin_splats(project_gaussians(model, cam, cfg),
+                             dataclasses.replace(cfg, rowseg_buckets=2))
+    assert int(seg.num_pairs) == int(out.num_pairs)
+    assert int(seg.tile_starts.max()) > int(seg.num_pairs)  # 2 segments
 
     from gaussian_splat_ipu_tpu_torch.train import trainer
     tc = trainer.TrainConfig()

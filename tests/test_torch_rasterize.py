@@ -128,3 +128,34 @@ def test_wrapper_on_cpu_is_the_plain_version():
     a = rasterize.rasterize_tiles(tb, cfg)
     b = rasterize_tiles_torch(tb, cfg)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("need_aux", [False, True])
+def test_plain_windows_past_the_table_end(need_aux):
+    """A table full to its last slot: tile 0 holds all P = 64 pairs (two
+    chunks), tile 1 is empty and starts at P, so its chunk-1 window lies
+    past the one zero chunk the plain version appends (row-bucket tables
+    put empty tiles there too). The result equals the same table with
+    room to spare."""
+    rng = np.random.default_rng(7)
+    p = 64
+    feats = np.zeros((16, p), np.float32)
+    feats[0] = rng.uniform(0, 16, p)
+    feats[1] = rng.uniform(0, 16, p)
+    feats[2] = feats[4] = 0.05
+    feats[5:8] = rng.uniform(0, 1, (3, p))
+    feats[8] = 0.3
+    feats[9] = np.sort(rng.uniform(1, 2, p))
+    tight = binning.BinnedSplats(
+        torch.tensor(feats), torch.zeros(p, dtype=torch.int32),
+        torch.tensor([0, p], dtype=torch.int32),
+        torch.tensor([p, p], dtype=torch.int32),
+        torch.tensor(p, dtype=torch.int32), torch.tensor(0, dtype=torch.int32))
+    roomy = tight._replace(features=torch.cat(
+        [tight.features, torch.zeros((16, 4 * TINY.chunk_size))], dim=1))
+    got = rasterize_tiles_torch(tight, TINY, need_aux=need_aux)
+    want = rasterize_tiles_torch(roomy, TINY, need_aux=need_aux)
+    for a, b in zip(*((got, want) if need_aux else ((got,), (want,)))):
+        assert torch.equal(a, b)
+    assert float(want[0][0, :, 3].max() if need_aux
+                 else want[0, :, 3].max()) > 0.5

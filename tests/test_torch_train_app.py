@@ -1,7 +1,8 @@
 """Checkpoints, PLY export and the port's train CLI
 (gaussian_splat_ipu_tpu_torch.app.train) on the CPU: checkpoints load in
 either package, PLY export round-trips, a tiny distill run trains,
-checkpoints and resumes, and unported flags are refused."""
+checkpoints and resumes, --rowseg trains as the flat path does, and
+unported flags are refused."""
 
 import numpy as np
 import jax
@@ -152,13 +153,29 @@ def test_self_mode_with_sh_bands_and_shuffle(ply, tmp_path):
         assert int(data["leaf_21"]) == 3               # step
 
 
+def test_rowseg_run_trains_like_the_flat_path(ply):
+    """--rowseg 2 bins every target, step and final render into two row
+    buckets: the run trains, drops no pair, and follows the flat run's
+    losses (the same pairs in the same order per tile; gradients agree to
+    reassociation, rtol 1e-5)."""
+    common = ["--input", ply, "--width", "64", "--height", "48", "--views",
+              "2", "--steps", "4", "--device", "cpu", "--log-level", "warn",
+              "--init-gaussians", "200", "--seed", "3", "--exact-tiles"]
+    flat = app.run(common)
+    seg = app.run(common + ["--rowseg", "2"])
+    assert seg["target_overflow"] == [0, 0] and seg["final_overflow"] == 0
+    assert np.isfinite(seg["losses"]).all() and seg["step"] == 4
+    assert seg["losses"][2] < seg["losses"][0]
+    np.testing.assert_allclose(seg["losses"], flat["losses"], rtol=1e-5)
+
+
 @pytest.mark.parametrize("flags", [
     ["--dataset", "d"], ["--downscale", "2"], ["--holdout-every", "4"],
     ["--densify"], ["--capacity", "10"], ["--densify-every", "5"],
     ["--densify-grad-threshold", "1e-3"], ["--densify-from", "1"],
     ["--densify-until", "9"], ["--auto-grow"], ["--distributed"],
     ["--view-batch", "2"], ["--pose-opt", "1e-3"],
-    ["--exposure-opt", "1e-2"], ["--depth-loss", "0.1"], ["--rowseg", "4"],
+    ["--exposure-opt", "1e-2"], ["--depth-loss", "0.1"],
     ["--export-splat", "x.splat"], ["--sh-step-every", "100"],
     ["--max-device-views", "2"]])
 def test_unported_flags_are_refused(flags, capsys):

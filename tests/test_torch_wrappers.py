@@ -12,7 +12,8 @@ from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.render import binning
 from gaussian_splat_ipu_tpu_torch.render.kernels import (coverage, cuda_lib,
-                                                         expand, rasterize)
+                                                         expand, rasterize,
+                                                         scan)
 from gaussian_splat_ipu_tpu_torch.render.projection import project_gaussians
 from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
     rasterize_backward_torch, rasterize_tiles_torch)
@@ -40,6 +41,32 @@ def kernel_inputs(splats):
     return geomf, geomi, packed, offs, binning.bin_splats(splats, CFG)
 
 
+def seg_inputs(splats, packed, offs):
+    """The three new kernels' inputs as bin_splats makes them: (R, N)
+    bucket counts for the scan, the segmented expansion's offsets (3
+    buckets of 512 slots, the middle one truncated) and gid_pre for
+    expand_pairs."""
+    cfg = dataclasses.replace(CFG, rowseg_buckets=3, pair_capacity=1536)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(binning, "SEG_ALIGN", 256)
+        lay = binning.rowseg_layout(binning.footprints(splats, cfg), cfg)
+    gid_pre, _ = binning.gather_slots(offs, 4096)
+    return lay.counts, (packed, lay.offs, lay.offs2, lay.live_end,
+                        lay.cap), gid_pre
+
+
+def new_kernels_match(splats, packed, offs):
+    counts, seg, gid_pre = seg_inputs(splats, packed, offs)
+    assert int(counts[0].sum()) < 512 < int(counts[1].sum())
+    assert torch.equal(scan.row_cumsum_exclusive(counts),
+                       scan.row_cumsum_exclusive_torch(counts))
+    for a, b in zip(expand.stream_expand_seg(*seg),
+                    expand.stream_expand_seg_torch(*seg)):
+        assert torch.equal(a, b)
+    assert torch.equal(expand.expand_pairs(packed, gid_pre),
+                       expand.expand_pairs_torch(packed, gid_pre))
+
+
 KW = dict(tw=32.0, th=32.0, alpha_min=1.0 / 255.0)
 
 
@@ -54,6 +81,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
         assert torch.equal(a, b)
     assert torch.equal(rasterize.rasterize_tiles(binned, CFG),
                        rasterize_tiles_torch(binned, CFG))
+    new_kernels_match(splats_on("cpu"), packed, offs)
     assert sum(cuda_lib.launches.values()) == 0
 
 
@@ -64,6 +92,14 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="CUDA tensors"):
         expand.stream_expand(torch.empty((5, 16), device="meta"),
                              torch.empty((5,), device="meta"), 128)
+    rows = torch.empty((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scan.row_cumsum_exclusive(rows)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        expand.stream_expand_seg(torch.empty((5, 16), device="meta"), rows,
+                                 rows, rows[:, 0], 256)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        expand.expand_pairs(torch.empty((5, 16), device="meta"), rows[0])
     assert sum(cuda_lib.launches.values()) == 0
 
 
@@ -86,6 +122,7 @@ def test_kernels_match_plain_versions_on_the_card():
         for a, b in zip(expand.stream_expand(packed, offs, 4096),
                         expand.stream_expand_torch(packed, offs, 4096)):
             assert torch.equal(a, b)
+        new_kernels_match(splats_on("cuda"), packed, offs)
         for strict in (True, False):
             cfg = dataclasses.replace(CFG, strict_termination=strict)
             got = rasterize.rasterize_tiles(binned, cfg)
@@ -106,7 +143,9 @@ def test_kernels_match_plain_versions_on_the_card():
                  + 1e-3 * ref.abs())
         assert bool(((got - ref).abs() <= bound).all())
         torch.cuda.synchronize()
-    assert cuda_lib.launches == {"coverage_masks": 1, "stream_expand": 1,
+    assert cuda_lib.launches == {"coverage_masks": 2, "stream_expand": 1,
+                                 "row_cumsum_exclusive": 2,
+                                 "stream_expand_seg": 1, "expand_pairs": 1,
                                  "rasterize_strict": 1,
                                  "rasterize_relaxed": 1,
                                  "rasterize_strict_aux": 1,
