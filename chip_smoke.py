@@ -16,7 +16,12 @@ Phases, each printing its own lines:
      rasterizer (strict, relaxed, strict with contributor counts) within
      1e-5, the counts exactly equal; the backward rasterizer within a
      bound scaled to each gradient row (TOL_BWD_*); CUDA-event medians of
-     each kernel and each plain version. Then, on a small scene, the CUDA
+     each kernel and each plain version, each kernel's bound on the H100
+     (PEAK_*: bytes or operations, for C and D from the live evaluations
+     that tile_raster.live_evaluations counts), and for E and F the time
+     of one PyTorch call for the same function (never called by the
+     port); the walked, kept and live evaluations of C and D on the 1M
+     and app frames. Then, on a small scene, the CUDA
      binning (flat, rowseg R = 2 and 3, the three gather paths; tables
      bit-identical), rasterizer, pair-table gradient and model gradients
      against the CPU path;
@@ -42,6 +47,7 @@ Phases, each printing its own lines:
      expand_kernel=False.
 The launch counters are zeroed just before each of phases 3-9 and read
 just after it: every kernel must have carried the path that uses it.
+Neither jax nor the JAX package (gaussian_splat_ipu_tpu) may be imported.
 Then one JSON line of per-kernel results, the card line, and last the
 status line {"ok": true, "device": {...}}. Any failure exits non-zero
 before it.
@@ -60,6 +66,16 @@ import time
 import numpy as np
 
 TOL_RASTER = 1e-5
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): 3.35
+# TB/s of HBM and 67 TFLOP/s of FP32 outside the tensor cores. Integer
+# operations are counted at the FP32 rate. A kernel's bound is the larger
+# of its bytes (each input read once, each output written once) over the
+# first and its operations over the second.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+OPS_COVERAGE_CELL = 40      # csrc/coverage.cu, per window cell tested
+OPS_FWD_LIVE = 27           # csrc/rasterize.cu, per live evaluation
+OPS_BWD_LIVE = 54           # csrc/rasterize_bwd.cu, per live evaluation
 # Backward bound, per element: |got - ref| <= TOL_BWD_ROW * max|ref row|
 # + TOL_BWD_REL * |ref|. Atomics (kernel) and tensor reductions (plain)
 # sum each pair's pixel terms in different orders; terms of both signs
@@ -110,9 +126,49 @@ def say(phase: str, **kv):
 
 def result(name: str, **kv) -> dict:
     src, replaces = KERNEL_SOURCES[name]
+    kv.setdefault("library_ms", None)
     return dict(name=name, route="cuda",
                 source=f"gaussian_splat_ipu_tpu_torch/csrc/{src}",
                 replaces=f"gaussian_splat_ipu_tpu/{replaces}", **kv)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the FP32 rate, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(n_bytes), operations=int(ops))
+
+
+def raster_work(binned, cfg, nc) -> dict:
+    """What kernels C and D walk on one frame (nc from the strict aux
+    forward): pairs of the walk (each range cut at start + the tile's
+    largest nc), those the tile cull keeps, and the live evaluations;
+    evaluations = pairs x pixels of a tile."""
+    from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
+        live_evaluations, surviving_pairs)
+    walked, kept = surviving_pairs(binned, cfg, nc)
+    npix = cfg.pixels_per_tile
+    return dict(walked_pairs=walked, kept_pairs=kept,
+                walked_evaluations=walked * npix,
+                kept_evaluations=kept * npix,
+                live_evaluations=live_evaluations(binned, cfg, nc))
+
+
+def raster_bytes(binned, cfg, per_pixel: int, table_rows_out: int = 0):
+    """Kernel C / D traffic: the 9 staged rows of every pair, the ranges,
+    `per_pixel` bytes for each pixel and `table_rows_out` f32 rows of
+    the whole table written (D's dfeat)."""
+    t = binned.tile_starts.shape[0]
+    return (9 * 4 * int(binned.num_pairs) + 8 * t
+            + per_pixel * t * cfg.pixels_per_tile
+            + table_rows_out * 4 * binned.features.shape[1])
 
 
 def exact_err(kernel: str, names, got, ref) -> float:
@@ -274,8 +330,9 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
     cuda_lib.library()
-    ptxas = [ln.strip() for ln in cuda_lib.BuildInfo.log.splitlines()
-             if "Used" in ln or "spill" in ln]
+    ptxas = [ln.split(":", 1)[-1].strip()
+             for ln in cuda_lib.BuildInfo.log.splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     say("environment", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         build_seconds=cuda_lib.BuildInfo.seconds,
@@ -342,7 +399,9 @@ def main() -> int:
                                   got, ref),
             ms=cuda_ms(lambda: coverage.coverage_masks(geomf, geomi, **kw)),
             plain_ms=cuda_ms(lambda: coverage.coverage_masks_torch(
-                geomf, geomi, **kw)))
+                geomf, geomi, **kw)),
+            **bound(nbytes(geomf, geomi, *got), OPS_COVERAGE_CELL * int(
+                torch.where(geomi[4] != 0, geomi[2] * geomi[3], 0).sum())))
 
         packed, offs = binning.pack_gaussians(splats_1m, cfg_1m)
         p = cfg_1m.pair_capacity
@@ -355,7 +414,8 @@ def main() -> int:
                                   got, ref),
             ms=cuda_ms(lambda: expand.stream_expand(packed, offs, p)),
             plain_ms=cuda_ms(lambda: expand.stream_expand_torch(
-                packed, offs, p)))
+                packed, offs, p)),
+            **bound(nbytes(packed, offs, *got), 0))
 
         # The three kernels of the rowseg and gather paths: the row scan
         # and the segmented expansion at the rowseg 1M config's angle-0
@@ -373,7 +433,10 @@ def main() -> int:
                                   (ref,)),
             ms=cuda_ms(lambda: scan.row_cumsum_exclusive(lay.counts)),
             plain_ms=cuda_ms(lambda: scan.row_cumsum_exclusive_torch(
-                lay.counts)))
+                lay.counts)),
+            library_ms=cuda_ms(lambda: torch.cumsum(lay.counts, dim=1)),
+            library_call="torch.cumsum(x, dim=1) (inclusive scan)",
+            **bound(nbytes(lay.counts, got), lay.counts.numel()))
         seg_args = (binning.pack_gaussians(splats_rs, cfg_rs)[0], lay.offs,
                     lay.offs2, lay.live_end, lay.cap)
         got = expand.stream_expand_seg(*seg_args)
@@ -385,8 +448,10 @@ def main() -> int:
                                                         "rank"), got, ref),
             ms=cuda_ms(lambda: expand.stream_expand_seg(*seg_args)),
             plain_ms=cuda_ms(lambda: expand.stream_expand_seg_torch(
-                *seg_args)))
+                *seg_args)),
+            **bound(nbytes(*seg_args[:4], *got), 0))
         gid_pre, _ = binning.gather_slots(offs, p)
+        gid_long = gid_pre.long()
         got = expand.expand_pairs(packed, gid_pre)
         ref = expand.expand_pairs_torch(packed, gid_pre)
         torch.cuda.synchronize()
@@ -395,8 +460,11 @@ def main() -> int:
             max_abs_err=exact_err("expand_pairs", ("cols",), (got,), (ref,)),
             ms=cuda_ms(lambda: expand.expand_pairs(packed, gid_pre)),
             plain_ms=cuda_ms(lambda: expand.expand_pairs_torch(packed,
-                                                               gid_pre)))
-        del splats_rs, seg_args, got, ref
+                                                               gid_pre)),
+            library_ms=cuda_ms(lambda: packed.index_select(0, gid_long)),
+            library_call="packed.index_select(0, gid) (no transpose)",
+            **bound(nbytes(packed, gid_pre, got), 0))
+        del splats_rs, seg_args, got, ref, gid_long
 
         cfg_app = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
                                pair_capacity=1 << 19,
@@ -406,9 +474,18 @@ def main() -> int:
         binned_app = binning.bin_splats(
             project_gaussians(app_scene.model, cam_app, cfg_app), cfg_app)
         binned_1m = binning.bin_splats(splats_1m, cfg_1m)
-        for name, binned, cfg in (("rasterize_strict", binned_1m, cfg_1m),
-                                  ("rasterize_relaxed", binned_app,
-                                   cfg_app)):
+        # The work of kernels C and D on the two frames, from the strict
+        # aux forward's contributor counts.
+        work = {}
+        for label, binned, cfg in (("1M g=3", binned_1m, cfg_1m),
+                                   ("app g=1", binned_app, cfg_app)):
+            work[label] = raster_work(
+                binned, cfg, rasterize.rasterize_tiles_aux(binned, cfg)[1])
+            say("compositing_work", frame=label,
+                pairs=int(binned.num_pairs), **work[label])
+        for name, binned, cfg, label in (
+                ("rasterize_strict", binned_1m, cfg_1m, "1M g=3"),
+                ("rasterize_relaxed", binned_app, cfg_app, "app g=1")):
             got = rasterize.rasterize_tiles(binned, cfg)
             ref = rasterize_tiles_torch(binned, cfg)
             torch.cuda.synchronize()
@@ -420,7 +497,9 @@ def main() -> int:
                 name, max_abs_err=err,
                 ms=cuda_ms(lambda: rasterize.rasterize_tiles(binned, cfg)),
                 plain_ms=cuda_ms(lambda: rasterize_tiles_torch(binned, cfg),
-                                 reps=3 if name.endswith("strict") else 5))
+                                 reps=3 if name.endswith("strict") else 5),
+                **bound(raster_bytes(binned, cfg, 16),
+                        OPS_FWD_LIVE * work[label]["live_evaluations"]))
         shapes = {
             "coverage_masks": f"N={geomf.shape[1]}",
             "stream_expand": f"N={packed.shape[0] - 1},P={p}",
@@ -462,14 +541,21 @@ def main() -> int:
                 tiles=binned.tile_starts.shape[0],
                 pairs=int(binned.num_pairs), **chk)
         main_chk = checks["1M 1280x720 g=3"]
+        # The train frame holds the same pairs as the 1M frame at angle 0
+        # (only its capacity differs), so it has the same work.
+        live_1m = work["1M g=3"]["live_evaluations"]
         results["rasterize_strict_aux"] = result(
             "rasterize_strict_aux",
             max_abs_err=max(c["aux_err"] for c in checks.values()),
-            ms=main_chk["aux_ms"], plain_ms=main_chk["aux_plain_ms"])
+            ms=main_chk["aux_ms"], plain_ms=main_chk["aux_plain_ms"],
+            **bound(raster_bytes(binned_t1m, cfg_train_1m, 20),
+                    OPS_FWD_LIVE * live_1m))
         results["rasterize_bwd"] = result(
             "rasterize_bwd",
             max_abs_err=max(c["bwd_err"] for c in checks.values()),
-            ms=main_chk["bwd_ms"], plain_ms=main_chk["bwd_plain_ms"])
+            ms=main_chk["bwd_ms"], plain_ms=main_chk["bwd_plain_ms"],
+            **bound(raster_bytes(binned_t1m, cfg_train_1m, 24, 16),
+                    OPS_BWD_LIVE * live_1m))
 
         # The CUDA binning and rasterizer on a small scene against the CPU
         # spec (which the CPU tests hold to the JAX package), from the same
@@ -822,6 +908,9 @@ def main() -> int:
             fail(f"{name} was not launched on the main path")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported: the port must run without it")
+    if any(m == "gaussian_splat_ipu_tpu"
+           or m.startswith("gaussian_splat_ipu_tpu.") for m in sys.modules):
+        fail("the JAX package was imported: the port must run without it")
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

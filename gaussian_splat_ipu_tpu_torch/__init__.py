@@ -8,9 +8,10 @@ CUDA kernel under `csrc/`, built with nvcc at first use and bound with
 ctypes (`render/kernels/cuda_lib.py`). Each kernel sits beside its plain
 PyTorch version, which CPU tensors take.
 
-This package imports torch and never jax. The only modules it shares with
-the reference are the jax-free ones: `RasterConfig` (utils/config.py), the
-PNG writer (utils/image.py) and the PLY parser and writer (io/ply.py).
+This package imports torch and never jax, and nothing of the reference
+package: it keeps its own copies of the reference's jax-free modules,
+`RasterConfig` (utils/config.py), the PNG codec (utils/image.py) and the
+PLY parser and writer (io/ply.py).
 
 Public surface:
 

@@ -1,6 +1,6 @@
 """Scene assembly: file -> GaussianModel + world bounds (torch port of
-gaussian_splat_ipu_tpu/io/scene.py). Parsing is the reference's jax-free
-io/ply.py; this module builds the port's model on an explicit device."""
+gaussian_splat_ipu_tpu/io/scene.py). Parsing is the port's io/ply.py;
+this module builds the port's model on an explicit device."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import dataclasses
 
 import numpy as np
 
-from gaussian_splat_ipu_tpu.io import ply as ply_io
+from gaussian_splat_ipu_tpu_torch.io import ply as ply_io
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 
 

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under gaussian_splat_ipu_tpu_torch/csrc/*.cu have a plain C
-interface. At first use each is compiled by its own nvcc process for
-sm_90a, all started together, and the objects are linked into one shared
-library, cached under gaussian_splat_ipu_tpu_torch/_build/<hash>/ (the
-hash covers the sources and flags) and loaded with ctypes. Nothing is
+interface (csrc/*.cuh are headers they include). At first use each source
+is compiled by its own nvcc process for sm_90a, all started together, and
+the objects are linked into one shared library, cached under
+gaussian_splat_ipu_tpu_torch/_build/<hash>/ (the hash covers the sources,
+the headers and the flags) and loaded with ctypes. Nothing is
 built or imported when this module is imported.
 
 Every C entry launches on the stream it is given and returns
@@ -81,6 +82,10 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
@@ -93,7 +98,7 @@ def _nvcc() -> str:
 
 def _build() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
@@ -101,6 +106,10 @@ def _build() -> str:
     BuildInfo.path = lib_path
     if os.path.isfile(lib_path):
         BuildInfo.seconds = 0.0
+        log = os.path.join(out_dir, "build.log")
+        if os.path.isfile(log):
+            with open(log) as f:
+                BuildInfo.log = f.read()
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()

@@ -25,15 +25,33 @@ from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
     rasterize_backward_torch, rasterize_tiles_torch)
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
-_STAGED_ROWS = B.FEAT_OPACITY + 1   # x, y, conic a/b/c, r, g, b, opacity
-_BWD_SUMS = 9                       # per-pair pixel sums of kernel D
-_MAX_STATIC_SMEM = 48 * 1024
+_MAX_THREADS = 512                  # csrc/raster_stage.cuh kMaxThreads
+_ROUNDS = 2                         # staging rounds: chunk <= 2 x threads
+_FWD_MAX_PPT, _BWD_MAX_PPT = 2, 4   # pixels per thread, kernels C and D
 _STRICT, _RELAXED, _STRICT_AUX = 0, 1, 2
 _MODE_NAMES = {_STRICT: "rasterize_strict", _RELAXED: "rasterize_relaxed",
                _STRICT_AUX: "rasterize_strict_aux"}
 
 
-def _check_launch(feats, starts, ends, cfg: RasterConfig, smem_rows: int):
+def _layout(cfg: RasterConfig, max_ppt: int):
+    """The kernels' thread layout, csrc/raster_stage.cuh::choose_layout:
+    (pixels per thread, warp rectangle width, threads), or None when the
+    tile and chunk admit none. Each warp owns a ww x (32 / ww) * ppt pixel
+    rectangle, ww = min(16, lowest set bit of tile_width), ppt the largest
+    of 4, 2, 1 up to max_ppt that fits."""
+    tw, th, chunk = cfg.tile_width, cfg.tile_height, cfg.chunk_size
+    if tw <= 0 or th <= 0 or chunk <= 0:
+        return None
+    ww = min(16, tw & -tw)
+    for ppt in (p for p in (4, 2, 1) if p <= max_ppt):
+        threads = tw * th // ppt
+        if (th % ((32 // ww) * ppt) == 0 and threads <= _MAX_THREADS
+                and chunk <= _ROUNDS * threads):
+            return ppt, ww, threads
+    return None
+
+
+def _check_launch(feats, starts, ends, cfg: RasterConfig, backward: bool):
     """Validate what the kernels take; returns (device, P, T, max_pairs)."""
     cuda_lib.require_cuda(feats, "features")
     dev = feats.device
@@ -42,13 +60,12 @@ def _check_launch(feats, starts, ends, cfg: RasterConfig, smem_rows: int):
     cuda_lib.require(feats, "features", torch.float32, (B.TABLE_ROWS, p), dev)
     cuda_lib.require(starts, "tile_starts", torch.int32, (num_tiles,), dev)
     cuda_lib.require(ends, "tile_ends", torch.int32, (num_tiles,), dev)
-    npix = cfg.pixels_per_tile
-    if not 0 < npix <= 1024 or npix % 32:
-        raise ValueError(f"tile of {npix} pixels: the kernels run one "
-                         "thread per pixel, a multiple of 32 up to 1024")
-    if smem_rows * cfg.chunk_size * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"chunk_size {cfg.chunk_size} needs more than "
-                         "48 KiB of shared memory")
+    if _layout(cfg, _BWD_MAX_PPT if backward else _FWD_MAX_PPT) is None:
+        raise ValueError(
+            f"{cfg.tile_width}x{cfg.tile_height} tiles with chunk_size "
+            f"{cfg.chunk_size}: the kernels need warp rectangles that tile "
+            f"the tile, at most {_MAX_THREADS} threads and a chunk of at "
+            f"most {_ROUNDS} x threads pairs")
     max_pairs = cfg.max_chunks_per_range * cfg.chunk_size
     if max_pairs >= 1 << 31:
         raise ValueError("max_chunks_per_range * chunk_size exceeds int32")
@@ -61,7 +78,7 @@ def _forward(binned: B.BinnedSplats, cfg: RasterConfig, mode: int):
     feats, starts, ends = binned.features, binned.tile_starts, \
         binned.tile_ends
     dev, p, num_tiles, max_pairs = _check_launch(feats, starts, ends, cfg,
-                                                 _STAGED_ROWS)
+                                                 backward=False)
     npix = cfg.pixels_per_tile
     out = torch.empty((num_tiles, npix, 4), dtype=torch.float32, device=dev)
     nc = (torch.empty((num_tiles, npix), dtype=torch.float32, device=dev)
@@ -100,7 +117,7 @@ def rasterize_backward(features: torch.Tensor, starts: torch.Tensor,
         return rasterize_backward_torch(features, starts, ends, gout, t_n,
                                         nc, cfg)
     dev, p, num_tiles, max_pairs = _check_launch(
-        features, starts, ends, cfg, _STAGED_ROWS + _BWD_SUMS)
+        features, starts, ends, cfg, backward=True)
     npix = cfg.pixels_per_tile
     cuda_lib.require(gout, "gout", torch.float32, (num_tiles, npix, 4), dev)
     cuda_lib.require(t_n, "t_n", torch.float32, (num_tiles, npix), dev)

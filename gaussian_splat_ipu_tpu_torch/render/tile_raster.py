@@ -216,3 +216,88 @@ def rasterize_backward_torch(features: torch.Tensor, starts: torch.Tensor,
         dfeat[:B.FEAT_OPACITY + 1].index_add_(
             1, torch.where(valid, pos, p), grow)
     return dfeat[:, :p].contiguous()
+
+
+# The cull of kernels C and D (csrc/raster_stage.cuh): boxes are used only
+# for conics with AC / det at most this.
+KAPPA_MAX = 1.0e4
+
+
+def tile_cull_torch(rows: torch.Tensor, x0, x1, y0, y1,
+                    alpha_min: float) -> torch.Tensor:
+    """Plain twin of the kernels' pair cull (raster_stage.cuh::pair_box and
+    misses), with the same f32 operations: rows (9, K) f32 are pairs
+    [x, y, conic a, b, c, r, g, b, op]; x0, x1, y0, y1 (K,) f32 the
+    pixel-centre rectangles they are tested against. True where the pair
+    is culled: no pixel of its rectangle can have power <= 0 and
+    alpha >= alpha_min. Pairs with op < alpha_min are always culled; a
+    pair with a non-finite value, A <= 0, det <= 0 or AC / det > KAPPA_MAX
+    never is (nor any pair when alpha_min <= 0)."""
+    x, y, a, b, c = rows[:5]
+    op = rows[8]
+    am = torch.tensor(alpha_min, dtype=torch.float32, device=rows.device)
+    ac = a * c
+    det = ac - b * b
+    finite = torch.isfinite(torch.stack([x, y, a, b, c, op, ac])).all(0)
+    ok = (am > 0) & finite & (a > 0) & (det > 0) & (ac <= KAPPA_MAX * det)
+    tau = 1.05 * torch.log(op / am) + 0.05
+    rx = torch.sqrt(2.0 * tau * c / det) * 1.01 + 0.5
+    ry = torch.sqrt(2.0 * tau * a / det) * 1.01 + 0.5
+    miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
+    return ((am > 0) & (op < am)) | (ok & miss)
+
+
+def _walked_pairs(binned: B.BinnedSplats, cfg: RasterConfig,
+                  nc: torch.Tensor):
+    """(tile, position) of every pair the compositing walks: each range cut
+    at the work bound and at start + the tile's largest contributor count
+    (no pixel composites a pair past it)."""
+    starts, ends = _clipped_ranges(binned.tile_starts, binned.tile_ends, cfg)
+    if starts.shape[0]:
+        ends = torch.minimum(ends, starts + nc.to(torch.int64).amax(dim=1))
+    lens = (ends - starts).clamp_min(0)
+    tiles = torch.repeat_interleave(
+        torch.arange(starts.shape[0], device=starts.device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    pos = starts[tiles] + torch.arange(tiles.shape[0],
+                                       device=starts.device) - first[tiles]
+    return tiles, pos
+
+
+def surviving_pairs(binned: B.BinnedSplats, cfg: RasterConfig,
+                    nc: torch.Tensor) -> tuple[int, int]:
+    """(walked, surviving): the (tile, pair) steps of the walk that
+    _walked_pairs describes, and those the kernels' tile cull keeps."""
+    tiles, pos = _walked_pairs(binned, cfg, nc)
+    x0 = ((tiles % cfg.tiles_x) * cfg.tile_width).to(torch.float32)
+    y0 = ((tiles // cfg.tiles_x) * cfg.tile_height).to(torch.float32)
+    culled = tile_cull_torch(binned.features[:B.FEAT_OPACITY + 1, pos], x0,
+                             x0 + (cfg.tile_width - 1), y0,
+                             y0 + (cfg.tile_height - 1), cfg.alpha_min)
+    return int(tiles.shape[0]), int((~culled).sum())
+
+
+def live_evaluations(binned: B.BinnedSplats, cfg: RasterConfig,
+                     nc: torch.Tensor, batch: int = 2048) -> int:
+    """The (pair, pixel) evaluations that do work in the compositing
+    kernels: power <= 0, alpha >= alpha_min and position < start + nc of
+    the pixel, with the rasterizer's own f32 arithmetic. nc is the
+    (T, NPIX) contributor count of the strict aux forward."""
+    tiles, pos = _walked_pairs(binned, cfg, nc)
+    table = binned.features
+    starts = binned.tile_starts.to(torch.int64)
+    limit = starts[:, None] + nc.to(torch.int64)            # (T, NPIX)
+    px, py = _tile_pixels(cfg, nc.shape[0], nc.device)
+    total = 0
+    for i in range(0, tiles.shape[0], batch):
+        t, q = tiles[i:i + batch], pos[i:i + batch]
+        gx, gy, ca, cb, cc = (table[f, q][:, None] for f in range(5))
+        op = table[B.FEAT_OPACITY, q][:, None]
+        dx = gx - px[t]
+        dy = gy - py[t]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.clamp_max(op * torch.exp(power), cfg.alpha_clamp)
+        live = ~((power > 0.0) | (alpha < cfg.alpha_min)) \
+            & (q[:, None] < limit[t])
+        total += int(live.sum())
+    return total

@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from gaussian_splat_ipu_tpu.io import ply as ply_io
+from gaussian_splat_ipu_tpu_torch.io import ply as ply_io
 from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.train.trainer import TrainState

@@ -16,11 +16,12 @@ from gaussian_splat_ipu_tpu.render.kernels import coverage as jcov
 from gaussian_splat_ipu_tpu.render.kernels import expand as jexp
 from gaussian_splat_ipu_tpu.render.projection import (
     project_gaussians as j_project)
-from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 from gaussian_splat_ipu_tpu_torch.render import binning
 from gaussian_splat_ipu_tpu_torch.render.kernels import coverage, expand
 from gaussian_splat_ipu_tpu_torch.render.projection import ProjectedSplats
-from gaussian_splat_ipu_tpu_torch.utils.config import check_supported
+from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
+                                                       check_supported)
+from tests.test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -40,7 +41,7 @@ def jax_splats(seed, n, cfg, rot=30.0, log_scale=(-4.5, -2.5)):
         sh=jnp.asarray(rng.uniform(-1, 1, (n, 1, 3)), jnp.float32))
     cam = JCamera.orbit(-BB, BB, np.radians(40.0),
                         cfg.image_width / cfg.image_height, rot_y_deg=rot)
-    return j_project(model, cam, cfg)
+    return j_project(model, cam, jax_config(cfg))
 
 
 def to_torch(splats):
@@ -62,7 +63,7 @@ def test_bin_splats_bit_identical(tile_group, exact):
     cfg = dataclasses.replace(CFG, tile_group=tile_group,
                               exact_tile_test=exact)
     js = jax_splats(0, 1500, cfg)
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert_binned_equal(want, got)
     assert int(got.num_pairs) > 1000 and int(got.overflow) == 0
@@ -71,7 +72,7 @@ def test_bin_splats_bit_identical(tile_group, exact):
 def test_bin_splats_overflow_bit_identical():
     cfg = dataclasses.replace(CFG, pair_capacity=512, exact_tile_test=True)
     js = jax_splats(1, 600, cfg)
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert_binned_equal(want, got)
     assert int(got.overflow) > 0
@@ -81,7 +82,7 @@ def test_bin_splats_overflow_bit_identical():
 def test_empty_scene_bins_nothing():
     js = jax_splats(2, 40, CFG)
     js = js._replace(radius=jnp.zeros_like(js.radius))
-    want = jbin.bin_splats(js, CFG)
+    want = jbin.bin_splats(js, jax_config(CFG))
     got = binning.bin_splats(to_torch(js), CFG)
     assert_binned_equal(want, got)
     assert int(got.num_pairs) == 0
@@ -190,7 +191,7 @@ def test_other_binning_paths_bit_identical(change, monkeypatch):
     monkeypatch.setattr(binning, "SEG_ALIGN", 256)
     cfg = dataclasses.replace(CFG, **change)
     js = jax_splats(0, 1500, cfg)
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert_binned_equal(want, got)
     assert int(got.num_pairs) > 1000

@@ -19,6 +19,7 @@ from gaussian_splat_ipu_tpu.render.projection import (
 from gaussian_splat_ipu_tpu_torch.render import binning
 from gaussian_splat_ipu_tpu_torch.render.kernels import expand
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from tests.test_torch_config import jax_config
 from tests.test_torch_binning import (CFG, assert_binned_equal, jax_splats,
                                       to_torch)
 
@@ -90,7 +91,7 @@ def test_gather_path_vjp_matches_jax(change):
 
     def jf(*fields):
         s = js._replace(**dict(zip(names, fields)))
-        return jnp.sum(jbin.bin_splats(s, cfg).features * cot)
+        return jnp.sum(jbin.bin_splats(s, jax_config(cfg)).features * cot)
 
     want = jax.grad(jf, argnums=tuple(range(5)))(
         *(getattr(js, k) for k in names))
@@ -143,7 +144,7 @@ def test_huge_tile_grid_falls_back_to_exact_sort():
                        max_chunks_per_tile=8)
     assert 31 - (cfg.num_tiles + 1).bit_length() < 16
     js = make_splats([[4.0, 4.0], [12.0, 4.0]], [2.0, 2.0], [2.0, 1.0])
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert_binned_equal(want, got)
     assert int(got.num_pairs) == 2 and int(got.overflow) == 0

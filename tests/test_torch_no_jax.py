@@ -1,6 +1,8 @@
-"""The port must run where JAX is absent: a subprocess blocks every `jax`
-import, imports the whole port, renders a tiny frame, bins it into row
-buckets and takes one train step on the CPU."""
+"""The port must run where JAX and the JAX package are absent: a
+subprocess blocks every `jax` import and every import of
+`gaussian_splat_ipu_tpu` (not of the port), imports the whole port,
+renders a tiny frame, bins it into row buckets and takes one train step on
+the CPU."""
 
 import os
 import subprocess
@@ -12,10 +14,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = textwrap.dedent("""
     import importlib, pkgutil, sys
 
+    REF = "gaussian_splat_ipu_tpu"
+
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
             if name == "jax" or name.startswith(("jax.", "jaxlib")):
                 raise ImportError("jax is blocked: " + name)
+            if name == REF or name.startswith(REF + "."):
+                raise ImportError("the JAX package is blocked: " + name)
             return None
 
     sys.meta_path.insert(0, BlockJax())
@@ -58,6 +64,7 @@ CHILD = textwrap.dedent("""
     assert int(state.step) == 1
     assert not torch.equal(state.params.means, model.means)
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
+    assert not any(k == REF or k.startswith(REF + ".") for k in sys.modules)
     print("OK")
 """)
 

@@ -12,10 +12,11 @@ import torch
 from gaussian_splat_ipu_tpu.models.camera import Camera as JCamera
 from gaussian_splat_ipu_tpu.models.gaussians import GaussianModel as JModel
 from gaussian_splat_ipu_tpu.render import pipeline as jpipe
-from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.render import pipeline
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from tests.test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -47,7 +48,7 @@ def test_render_matches_jax(tile_group, exact, sh_degree):
     cfg = dataclasses.replace(CFG, tile_group=tile_group,
                               exact_tile_test=exact)
     jm, jc, tm, tc = scene(0, 2000, sh_degree)
-    want = jpipe.render(jm, jc, cfg, use_pallas=False)
+    want = jpipe.render(jm, jc, jax_config(cfg), use_pallas=False)
     got = pipeline.render(tm, tc, cfg)
     assert got.image.shape == (96, 160, 4)
     np.testing.assert_allclose(got.image.numpy(), np.asarray(want.image),
@@ -64,7 +65,7 @@ def test_render_matches_jax(tile_group, exact, sh_degree):
 def test_truncated_telemetry_deduped_per_group():
     cfg = dataclasses.replace(CFG, tile_group=2, max_chunks_per_tile=1)
     jm, jc, tm, tc = scene(1, 2000)
-    want = jpipe.render(jm, jc, cfg, use_pallas=False)
+    want = jpipe.render(jm, jc, jax_config(cfg), use_pallas=False)
     got = pipeline.render(tm, tc, cfg)
     assert int(got.truncated) == int(want.truncated) > 0
     np.testing.assert_allclose(got.image.numpy(), np.asarray(want.image),
@@ -74,7 +75,7 @@ def test_truncated_telemetry_deduped_per_group():
 def test_render_depth_matches_jax():
     cfg = dataclasses.replace(CFG, background=(0.2, 0.2, 0.2))
     jm, jc, tm, tc = scene(2, 1500)
-    want = jpipe.render_depth(jm, jc, cfg, use_pallas=False)
+    want = jpipe.render_depth(jm, jc, jax_config(cfg), use_pallas=False)
     got = pipeline.render_depth(tm, tc, cfg)
     for name, a, b in zip(("mean", "var", "alpha"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,

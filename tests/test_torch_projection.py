@@ -10,10 +10,11 @@ from gaussian_splat_ipu_tpu.models.camera import Camera as JCamera
 from gaussian_splat_ipu_tpu.models.gaussians import GaussianModel as JModel
 from gaussian_splat_ipu_tpu.render.projection import (
     project_gaussians as j_project)
-from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.render.projection import project_gaussians
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from tests.test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -48,7 +49,7 @@ def test_projected_splats_match_jax(sh_degree, antialias, env_rot):
                        env_rot=env_rot)
     tc = Camera.from_numpy(np.asarray(jc.view), np.asarray(jc.proj),
                            np.asarray(jc.env_rot), device="cpu")
-    want = j_project(jm, jc, cfg)
+    want = j_project(jm, jc, jax_config(cfg))
     got = project_gaussians(tm, tc, cfg)
     for name in want._fields:
         np.testing.assert_allclose(getattr(got, name).numpy(),

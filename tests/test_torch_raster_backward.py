@@ -13,11 +13,12 @@ import torch
 
 from gaussian_splat_ipu_tpu.render import tile_raster as jraster
 from gaussian_splat_ipu_tpu.render.kernels import rasterize as jkernel
-from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib, rasterize
 from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
     rasterize_backward_torch, rasterize_tiles_torch)
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 from tests.test_backward_kernel import _binned as ref_binned
+from tests.test_torch_config import jax_config
 from tests.test_torch_rasterize import CFG, TINY, jax_binned, to_torch
 
 torch.set_num_threads(1)
@@ -33,8 +34,9 @@ def cotangent(cfg, seed):
 def jax_grad(jb, cfg, cot, pallas=False):
     def f(features):
         b = jb._replace(features=features)
-        tiles = (jkernel.rasterize_tiles(b, cfg, interpret=True) if pallas
-                 else jraster.rasterize_tiles_jnp(b, cfg))
+        jcfg = jax_config(cfg)
+        tiles = (jkernel.rasterize_tiles(b, jcfg, interpret=True) if pallas
+                 else jraster.rasterize_tiles_jnp(b, jcfg))
         return jnp.sum(tiles * cot)
     return np.asarray(jax.grad(f)(jb.features))
 
@@ -97,7 +99,7 @@ def test_background_and_alpha_cotangent_match_reference():
     cfg = RasterConfig(image_width=64, image_height=64,
                        pair_capacity=1 << 12, max_chunks_per_tile=4,
                        background=(0.2, 0.5, 0.9))
-    jb = ref_binned(seed=2, cfg=cfg)
+    jb = ref_binned(seed=2, cfg=jax_config(cfg))
     cot = np.asarray(jax.random.normal(
         jax.random.PRNGKey(7), (cfg.num_tiles, cfg.pixels_per_tile, 4),
         jnp.float32))
@@ -127,7 +129,7 @@ def test_aux_forward_matches_pallas_aux_interpret():
     jb = jax_binned(4, 200, TINY, opacity_shift=4.0, scale_shift=0.8)
     tiles_j, nc_j = jkernel._pallas_forward(
         jb.features, jb.tile_starts, jb.tile_ends,
-        jnp.zeros((1,), jnp.int32), TINY, interpret=True)
+        jnp.zeros((1,), jnp.int32), jax_config(TINY), interpret=True)
     tiles, nc = rasterize_tiles_torch(to_torch(jb), TINY, need_aux=True)
     np.testing.assert_array_equal(nc.numpy(), np.asarray(nc_j)[:, 0])
     np.testing.assert_allclose(1.0 - tiles[..., 3].numpy(),

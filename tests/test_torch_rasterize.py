@@ -16,11 +16,12 @@ from gaussian_splat_ipu_tpu.render import tile_raster as jraster
 from gaussian_splat_ipu_tpu.render.kernels import rasterize as jkernel
 from gaussian_splat_ipu_tpu.render.projection import (
     project_gaussians as j_project)
-from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 from gaussian_splat_ipu_tpu_torch.render import binning
 from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
 from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
     rasterize_tiles_torch)
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from tests.test_torch_config import jax_config
 
 torch.set_num_threads(1)
 
@@ -48,7 +49,8 @@ def jax_binned(seed, n, cfg, opacity_shift=0.0, scale_shift=0.0, z=0.0):
     bb = np.ones(3, np.float32)
     cam = JCamera.orbit(-bb, bb, np.radians(40.0),
                         cfg.image_width / cfg.image_height, rot_y_deg=20.0)
-    return jbin.bin_splats(j_project(model, cam, cfg), cfg)
+    jcfg = jax_config(cfg)
+    return jbin.bin_splats(j_project(model, cam, jcfg), jcfg)
 
 
 def to_torch(binned):
@@ -61,7 +63,7 @@ def test_strict_plain_matches_jnp_spec(tile_group):
     cfg = dataclasses.replace(CFG, tile_group=tile_group,
                               background=(0.1, 0.2, 0.3))
     jb = jax_binned(0, 1500, cfg)
-    want = np.asarray(jraster.rasterize_tiles_jnp(jb, cfg))
+    want = np.asarray(jraster.rasterize_tiles_jnp(jb, jax_config(cfg)))
     got = rasterize.rasterize_tiles(to_torch(jb), cfg).numpy()
     assert got.shape == (cfg.num_tiles, cfg.pixels_per_tile, 4)
     np.testing.assert_allclose(got, want, atol=1e-5)
@@ -75,7 +77,7 @@ def test_truncated_ranges_match_jnp_spec():
     jb = jax_binned(1, 1500, cfg)
     counts = np.asarray(jb.tile_ends - jb.tile_starts)
     assert (counts > cfg.chunk_size).any()
-    want = np.asarray(jraster.rasterize_tiles_jnp(jb, cfg))
+    want = np.asarray(jraster.rasterize_tiles_jnp(jb, jax_config(cfg)))
     got = rasterize_tiles_torch(to_torch(jb), cfg).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
 
@@ -89,12 +91,14 @@ def test_empty_scene_is_background():
         [0.1, 0.2, 0.3], got[..., :3].shape), atol=1e-7)
     np.testing.assert_array_equal(got[..., 3], 0.0)
     np.testing.assert_allclose(
-        got, np.asarray(jraster.rasterize_tiles_jnp(jb, cfg)), atol=1e-7)
+        got, np.asarray(jraster.rasterize_tiles_jnp(jb, jax_config(cfg))),
+        atol=1e-7)
 
 
 def test_strict_plain_matches_pallas_interpret():
     jb = jax_binned(3, 60, TINY)
-    want = np.asarray(jkernel.rasterize_tiles(jb, TINY, interpret=True))
+    want = np.asarray(jkernel.rasterize_tiles(jb, jax_config(TINY),
+                                              interpret=True))
     got = rasterize_tiles_torch(to_torch(jb), TINY).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
 
@@ -109,7 +113,7 @@ def test_relaxed_plain_matches_pallas_interpret_and_bounds():
     relaxed_cfg = dataclasses.replace(TINY, strict_termination=False)
     jb = jax_binned(4, 200, TINY, opacity_shift=4.0, scale_shift=0.8)
     tb = to_torch(jb)
-    want = np.asarray(jkernel.rasterize_tiles(jb, relaxed_cfg,
+    want = np.asarray(jkernel.rasterize_tiles(jb, jax_config(relaxed_cfg),
                                               interpret=True))
     fast = rasterize_tiles_torch(tb, relaxed_cfg).numpy()
     np.testing.assert_allclose(fast, want, atol=1e-5)

@@ -23,6 +23,7 @@ from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
                                                           GaussianModel)
 from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
 from gaussian_splat_ipu_tpu_torch.render.kernels import expand, scan
+from tests.test_torch_config import jax_config
 from tests.test_torch_binning import (CFG, assert_binned_equal, jax_splats,
                                       to_torch)
 from tests.test_torch_train import cameras, params_np
@@ -87,7 +88,7 @@ def test_bucket_helpers_match_jax(monkeypatch):
         rd = binning.bucket_demands(to_torch(jax_splats(0, 1500, c)), c)
         np.testing.assert_array_equal(
             rd.numpy(), np.asarray(jbin.bucket_demands(
-                jax_splats(0, 1500, c), c)))
+                jax_splats(0, 1500, c), jax_config(c))))
     # The demand list of tests/test_rowseg.py:93-101, and min_sum floors.
     d = [10, 200, 250, 240, 30, 5, 5, 260, 0, 0, 0, 0]
     for r in (2, 3, 4, 6, 12, 13):
@@ -146,7 +147,7 @@ def test_rowseg_bin_splats_bit_identical(tile_group, exact, r):
     cfg = dataclasses.replace(CFG, tile_group=tile_group,
                               exact_tile_test=exact, rowseg_buckets=r)
     js = jax_splats(0, 1500, cfg)
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert segmented(want)                     # the reference's own branch
     assert_binned_equal(want, got)
@@ -165,7 +166,7 @@ def test_rowseg_balanced_bounds_bit_identical():
     assert bounds != binning.rowseg_bounds(
         dataclasses.replace(cfg, rowseg_buckets=4), cfg.tiles_y)
     cfg_b = dataclasses.replace(cfg, rowseg_buckets=4, rowseg_bounds=bounds)
-    want = jbin.bin_splats(js, cfg_b)
+    want = jbin.bin_splats(js, jax_config(cfg_b))
     got = binning.bin_splats(ts, cfg_b)
     assert segmented(want)
     assert_binned_equal(want, got)
@@ -182,7 +183,7 @@ def test_rowseg_truncating_capacity_bit_identical():
     whole demand, and every reported range holds live pairs only."""
     cfg = dataclasses.replace(CFG, rowseg_buckets=2, pair_capacity=1024)
     js = jax_splats(0, 1500, cfg)
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert_binned_equal(want, got)
     demand = int(binning.bin_splats(
@@ -205,7 +206,7 @@ def test_span_fallback_scene_per_tile_slices_match():
     js = jax_splats(4, 6000, cfg)
     hidden = np.arange(6000) % 20 != 0
     js = js._replace(radius=jnp.where(hidden[:, None], 0.0, js.radius))
-    want = jbin.bin_splats(js, cfg)
+    want = jbin.bin_splats(js, jax_config(cfg))
     got = binning.bin_splats(to_torch(js), cfg)
     assert not segmented(want) and segmented(got)
     assert int(got.num_pairs) == int(want.num_pairs) > 500

@@ -17,12 +17,13 @@ from gaussian_splat_ipu_tpu.render import binning as jbin
 from gaussian_splat_ipu_tpu.render import pipeline as jpipe
 from gaussian_splat_ipu_tpu.train import losses as jlosses
 from gaussian_splat_ipu_tpu.train import trainer as jtrainer
-from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
                                                           GaussianModel)
 from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
 from gaussian_splat_ipu_tpu_torch.train import losses, trainer
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from tests.test_torch_config import jax_config
 from tests.test_torch_binning import jax_splats, to_torch
 
 torch.set_num_threads(1)
@@ -70,7 +71,7 @@ def test_binning_vjp_matches_fused_table_bwd(tile_group, exact):
 
     def jf(*fields):
         s = js._replace(**dict(zip(names, fields)))
-        return jnp.sum(jbin.bin_splats(s, cfg).features * cot)
+        return jnp.sum(jbin.bin_splats(s, jax_config(cfg)).features * cot)
 
     want = jax.grad(jf, argnums=tuple(range(5)))(
         *(getattr(js, k) for k in names))
@@ -99,7 +100,7 @@ def test_model_grads_match_jax(tile_group, exact, sh_degree, antialias):
         size=(cfg.image_height, cfg.image_width, 4)).astype(np.float32)
 
     def jloss(m):
-        return jnp.sum(jpipe.render_image(m, jc, cfg, False) * w)
+        return jnp.sum(jpipe.render_image(m, jc, jax_config(cfg), False) * w)
 
     want = jax.grad(jloss)(jmodel(p))
     model = GaussianModel.from_numpy(p, device="cpu").trainable()
@@ -186,7 +187,8 @@ def _scene_and_target(cfg):
     p = params_np(0, 200, sh_degree=1, log_scale=(-3.5, -2.0))
     target_p = params_np(3, 200, sh_degree=1, log_scale=(-3.5, -2.0))
     jc, tc = cameras(cfg)
-    target = np.asarray(jpipe.render_image(jmodel(target_p), jc, cfg,
+    target = np.asarray(jpipe.render_image(jmodel(target_p), jc,
+                                           jax_config(cfg),
                                            False))
     return p, jc, tc, target
 
@@ -209,7 +211,7 @@ def test_three_train_steps_match_jax():
         GaussianModel.from_numpy(p, device="cpu").trainable(), ttc)
     jt, tt = jnp.asarray(target), torch.tensor(target)
     for _ in range(3):
-        jstate, jl = step(jstate, jc, jt, cfg, jtc, True)
+        jstate, jl = step(jstate, jc, jt, jax_config(cfg), jtc, True)
         tstate, tl = trainer.train_step(tstate, tc, tt, cfg, ttc)
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     want = [np.asarray(x) for x in jax.tree_util.tree_leaves(jstate)]

@@ -70,6 +70,29 @@ def new_kernels_match(splats, packed, offs):
 KW = dict(tw=32.0, th=32.0, alpha_min=1.0 / 255.0)
 
 
+def raster_kernels_match(binned, cfg):
+    """Kernel C in its three modes and kernel D against their plain
+    versions on one binned frame."""
+    for strict in (True, False):
+        c = dataclasses.replace(cfg, strict_termination=strict)
+        got = rasterize.rasterize_tiles(binned, c)
+        want = rasterize_tiles_torch(binned, c)
+        assert float((got - want).abs().max()) <= 1e-5
+    tiles, nc = rasterize.rasterize_tiles_aux(binned, cfg)
+    want, want_nc = rasterize_tiles_torch(binned, cfg, need_aux=True)
+    assert float((tiles - want).abs().max()) <= 1e-5
+    assert torch.equal(nc, want_nc)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = (binned.features, binned.tile_starts, binned.tile_ends,
+            torch.randn(want.shape, generator=gen, device="cuda"),
+            1.0 - want[..., 3], want_nc, cfg)
+    got = rasterize.rasterize_backward(*args)
+    ref = rasterize_backward_torch(*args)
+    # Atomics reorder the sums: bound each row by its own scale.
+    bound = (1e-4 * ref.abs().amax(dim=1, keepdim=True) + 1e-3 * ref.abs())
+    assert bool(((got - ref).abs() <= bound).all())
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     cuda_lib.launches.clear()
     geomf, geomi, packed, offs, binned = kernel_inputs(splats_on("cpu"))
@@ -115,6 +138,9 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():
         geomf, geomi, packed, offs, binned = kernel_inputs(splats_on("cuda"))
+        # A 3x3 tile group: every member tile walks its group's range.
+        cfg3 = dataclasses.replace(CFG, tile_group=3)
+        binned3 = binning.bin_splats(splats_on("cuda"), cfg3)
         cuda_lib.launches.clear()
         for a, b in zip(coverage.coverage_masks(geomf, geomi, **KW),
                         coverage.coverage_masks_torch(geomf, geomi, **KW)):
@@ -123,30 +149,13 @@ def test_kernels_match_plain_versions_on_the_card():
                         expand.stream_expand_torch(packed, offs, 4096)):
             assert torch.equal(a, b)
         new_kernels_match(splats_on("cuda"), packed, offs)
-        for strict in (True, False):
-            cfg = dataclasses.replace(CFG, strict_termination=strict)
-            got = rasterize.rasterize_tiles(binned, cfg)
-            want = rasterize_tiles_torch(binned, cfg)
-            assert float((got - want).abs().max()) <= 1e-5
-        tiles, nc = rasterize.rasterize_tiles_aux(binned, CFG)
-        want, want_nc = rasterize_tiles_torch(binned, CFG, need_aux=True)
-        assert float((tiles - want).abs().max()) <= 1e-5
-        assert torch.equal(nc, want_nc)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        args = (binned.features, binned.tile_starts, binned.tile_ends,
-                torch.randn(want.shape, generator=gen, device="cuda"),
-                1.0 - want[..., 3], want_nc, CFG)
-        got = rasterize.rasterize_backward(*args)
-        ref = rasterize_backward_torch(*args)
-        # Atomics reorder the sums: bound each row by its own scale.
-        bound = (1e-4 * ref.abs().amax(dim=1, keepdim=True)
-                 + 1e-3 * ref.abs())
-        assert bool(((got - ref).abs() <= bound).all())
+        raster_kernels_match(binned, CFG)
+        raster_kernels_match(binned3, cfg3)
         torch.cuda.synchronize()
     assert cuda_lib.launches == {"coverage_masks": 2, "stream_expand": 1,
                                  "row_cumsum_exclusive": 2,
                                  "stream_expand_seg": 1, "expand_pairs": 1,
-                                 "rasterize_strict": 1,
-                                 "rasterize_relaxed": 1,
-                                 "rasterize_strict_aux": 1,
-                                 "rasterize_bwd": 1}
+                                 "rasterize_strict": 2,
+                                 "rasterize_relaxed": 2,
+                                 "rasterize_strict_aux": 2,
+                                 "rasterize_bwd": 2}
