@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (gaussian_splat_ipu_tpu_torch) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old DIR]
 
 Phases, each printing its own lines:
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -15,13 +15,18 @@ Phases, each printing its own lines:
      1M table through the gather expansion) exactly equal; the forward
      rasterizer (strict, relaxed, strict with contributor counts) within
      1e-5, the counts exactly equal; the backward rasterizer within a
-     bound scaled to each gradient row (TOL_BWD_*); CUDA-event medians of
-     each kernel and each plain version, each kernel's bound on the H100
-     (PEAK_*: bytes or operations, for C and D from the live evaluations
-     that tile_raster.live_evaluations counts), and for E and F the time
-     of one PyTorch call for the same function (never called by the
-     port); the walked, kept and live evaluations of C and D on the 1M
-     and app frames. Then, on a small scene, the CUDA
+     bound scaled to each gradient row (TOL_BWD_*); device-time medians
+     of each kernel and each plain version (DeviceTimer: each run queued
+     behind a spin, so the wrapper's host work is not counted; the spin
+     must cover it for every kernel and library timing), each kernel's
+     bound on the H100 (PEAK_*: bytes or operations, for C and D from the
+     live evaluations that tile_raster.live_evaluations counts), and for
+     E and F the time of one PyTorch call for the same function (never
+     called by the port); torch.profiler's device time of A and E beside
+     the event timer's; the row scan's design, and with --old DIR the
+     parent commit's one-CTA-per-row scan.cu from DIR, timed in turns
+     with it (old, new, new, old); the walked, kept and live evaluations
+     of C and D on the 1M and app frames. Then, on a small scene, the CUDA
      binning (flat, rowseg R = 2 and 3, the three gather paths; tables
      bit-identical), rasterizer, pair-table gradient and model gradients
      against the CPU path;
@@ -55,6 +60,8 @@ before it.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -100,6 +107,17 @@ RS_CAP_TARGET = 1 << 18
 RS_SLACK = 1.08
 RS_FRAMES = 3
 RS_TRAIN_STEPS = 2
+# DeviceTimer: the least spin queued before each timed run, the cycles of
+# the spin that measures the rate it runs at, and the device time and the
+# most calls of one timed run.
+SPIN_MS = 5.0
+SPIN_CAL_CYCLES = 10_000_000
+RUN_MS = 1.0
+MAX_CALLS = 20
+# The C entry of the one-CTA-per-row scan.cu that --old builds: x, r, n,
+# out, stream (the look-back scan added a scratch pointer).
+OLD_SCAN_SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p)
 KERNEL_SOURCES = {
     "coverage_masks": ("coverage.cu", "render/kernels/coverage.py:106"),
     "stream_expand": ("expand.cu", "render/kernels/expand.py:338"),
@@ -195,20 +213,164 @@ def bwd_err(kernel: str, got, ref) -> float:
     return float(err.max())
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() over `reps` runs after one warm-up."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
+class DeviceTimer:
+    """Device time of a function, without the host's share.
+
+    `ms` queues each timed run behind a spin on the stream
+    (torch.cuda._sleep) of at least SPIN_MS and twice the host's time to
+    queue the run, then the start event, fn() `calls` times back to back,
+    the end event. The device stamps the start event when the spin ends,
+    by which time the host has queued the whole run: the wrapper's checks,
+    allocations and ctypes call are not counted as kernel time. `calls`
+    makes a run last about RUN_MS (at most MAX_CALLS calls), so that the
+    events' own cost of a few us is shared by many calls of a short
+    kernel. The spin covered the host when the host's time from the
+    spin's enqueue to the end event's enqueue stays below the spin's
+    length; `checks` keeps that check for every timing."""
+
+    def __init__(self):
+        self.checks: list = []
+        self._rate = None
+
+    def cycles_per_ms(self) -> float:
+        """SM cycles per ms of the spin: the larger of the rate a spin of
+        SPIN_CAL_CYCLES runs at (CUDA events) and the card's reported
+        clock, so that a spin of c cycles lasts at least c / this ms."""
+        import torch
+        if self._rate is None:
+            torch.cuda._sleep(1000)
+            ms = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                torch.cuda._sleep(SPIN_CAL_CYCLES)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            khz = getattr(torch.cuda.get_device_properties(0), "clock_rate",
+                          0)
+            self._rate = max(SPIN_CAL_CYCLES / float(np.median(ms)),
+                             float(khz))
+        return self._rate
+
+    def ms(self, fn, reps: int = 5, label: str = "", enforce: bool = True
+           ) -> float:
+        """Median device time of one fn() call in ms over `reps` runs
+        after one warm-up call. A timing whose spin did not cover the host
+        fails the run when `enforce`; the plain versions (PyTorch programs
+        of many launches, some reading a loop length back from the device,
+        which no spin can cover) are timed with enforce=False and their
+        check is only recorded."""
+        import torch
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        one_ms = max(start.elapsed_time(end), 1e-3)
+        calls = int(min(MAX_CALLS, max(1, RUN_MS // one_ms)))
+        spin_ms = (max(SPIN_MS, 2.0 * calls * host_ms) if enforce
+                   else SPIN_MS)
+        cycles = int(spin_ms * self.cycles_per_ms())
+        times, worst = [], 0.0
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            worst = max(worst, (time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            times.append(start.elapsed_time(end) / calls)
+        covered = worst < spin_ms
+        self.checks.append(dict(label=label, calls=calls, spin_ms=spin_ms,
+                                host_ms=worst, covered=covered,
+                                enforced=enforce))
+        if enforce and not covered:
+            fail(f"timer: {label or fn}: the host took {worst:.3f} ms to "
+                 f"queue the run, longer than the {spin_ms:.3f} ms spin "
+                 "before it")
+        return float(np.median(times))
+
+    def summary(self) -> dict:
+        """The spin checks so far: every enforced one covered the host (or
+        the run failed); each plain version's, by label."""
+        enforced = [t for t in self.checks if t["enforced"]]
+        return dict(
+            cycles_per_ms=self.cycles_per_ms(), timings=len(self.checks),
+            enforced=len(enforced),
+            enforced_covered=sum(t["covered"] for t in enforced),
+            worst_enforced_host_over_spin=max(
+                (t["host_ms"] / t["spin_ms"] for t in enforced), default=0.0),
+            calls={t["label"]: t["calls"] for t in enforced},
+            plain=[(t["label"], t["covered"], round(t["host_ms"], 3))
+                   for t in self.checks if not t["enforced"]])
+
+
+def profiled_ms(fn, reps: int = 5) -> float:
+    """Device time of fn() in ms by torch.profiler: the sum of the CUDA
+    activity (kernels, memsets) of `reps` calls, over reps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+             for ev in prof.key_averages() if ev.device_type.name == "CUDA")
+    return us / 1e3 / reps
+
+
+def build_lib(srcs, out_dir: str, signatures: dict, flags=()):
+    """nvcc each source in parallel with the port's flags and `flags`,
+    link them into one library in a new directory under out_dir, load it
+    and bind each entry of `signatures` (name -> ctypes argtypes). Returns
+    (library, build log)."""
+    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = cuda_lib._nvcc()
+    work = tempfile.mkdtemp(dir=out_dir)
+    objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
+    procs = [subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-c",
+                               "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    log = "".join(p.communicate()[0] for p in procs)
+    if any(p.returncode for p in procs):
+        fail(f"nvcc failed on {srcs}:\n{log}")
+    lib_path = os.path.join(work, "lib.so")
+    subprocess.run([nvcc, "-shared", "-o", lib_path, *objs], check=True)
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib, log
+
+
+def ptxas_lines(log: str, key: str) -> list:
+    """ptxas's register, shared-memory and spill lines of the entries whose
+    name holds `key`, each after the name of its entry."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = key in ln
+        if keep and ("Compiling entry" in ln or "Used" in ln
+                     or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def counted(cuda_lib, fn):
@@ -226,9 +388,10 @@ def need_launches(path: str, launches: dict, names, least: int):
                  f"than {least}: {launches}")
 
 
-def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int):
+def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int, cuda_ms):
     """The strict aux forward and the backward kernel against their plain
-    versions on one binned frame: returns a dict of errors and times."""
+    versions on one binned frame: returns a dict of errors and times
+    (cuda_ms: a DeviceTimer's ms)."""
     import torch
     from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
     from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
@@ -252,12 +415,16 @@ def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int):
         aux_err=aux_err, bwd_err=bwd_err("rasterize_bwd", got, ref),
         broke_pixels=int((ref_nc < (binned.tile_ends - binned.tile_starts)
                           [:, None].float()).sum()),
-        aux_ms=cuda_ms(lambda: rasterize.rasterize_tiles_aux(binned, cfg)),
+        aux_ms=cuda_ms(lambda: rasterize.rasterize_tiles_aux(binned, cfg),
+                       label="rasterize_strict_aux"),
         aux_plain_ms=cuda_ms(lambda: rasterize_tiles_torch(
-            binned, cfg, need_aux=True), reps=plain_reps),
-        bwd_ms=cuda_ms(lambda: rasterize.rasterize_backward(*args)),
+            binned, cfg, need_aux=True), reps=plain_reps,
+            label="rasterize_strict_aux plain", enforce=False),
+        bwd_ms=cuda_ms(lambda: rasterize.rasterize_backward(*args),
+                       label="rasterize_bwd"),
         bwd_plain_ms=cuda_ms(lambda: rasterize_backward_torch(*args),
-                             reps=plain_reps))
+                             reps=plain_reps, label="rasterize_bwd plain",
+                             enforce=False))
 
 
 def rowseg_config(binning, project, model, cam_of, cfg0):
@@ -296,6 +463,12 @@ def rowseg_config(binning, project, model, cam_of, cfg0):
 
 def main() -> int:
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", metavar="DIR",
+                    help="a directory holding the parent commit's scan.cu "
+                    "(one CTA per row): phase 2 times it in turns with the "
+                    "row scan")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "one CUDA GPU")
@@ -320,6 +493,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    timer = DeviceTimer()
+    cuda_ms = timer.ms
 
     # -- 1. environment -----------------------------------------------------
     smi = subprocess.run(
@@ -339,6 +514,14 @@ def main() -> int:
         library=os.path.relpath(cuda_lib.BuildInfo.path),
         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32, ptxas=ptxas)
+    old_scan = None
+    if args.old:
+        old_scan, log = build_lib(
+            [os.path.join(args.old, "scan.cu")],
+            tempfile.mkdtemp(prefix="gsplat_old_"),
+            {"gsplat_row_cumsum_exclusive": OLD_SCAN_SIGNATURE})
+        say("old_build", source=os.path.join(args.old, "scan.cu"),
+            ptxas=ptxas_lines(log, "row_scan"))
 
     fov = float(np.radians(40.0))
     aspect = WIDTH / HEIGHT
@@ -397,11 +580,19 @@ def main() -> int:
             "coverage_masks",
             max_abs_err=exact_err("coverage_masks", ("mlo", "mhi", "count"),
                                   got, ref),
-            ms=cuda_ms(lambda: coverage.coverage_masks(geomf, geomi, **kw)),
+            ms=cuda_ms(lambda: coverage.coverage_masks(geomf, geomi, **kw),
+                       label="coverage_masks"),
             plain_ms=cuda_ms(lambda: coverage.coverage_masks_torch(
-                geomf, geomi, **kw)),
+                geomf, geomi, **kw), label="coverage_masks plain",
+                enforce=False),
             **bound(nbytes(geomf, geomi, *got), OPS_COVERAGE_CELL * int(
                 torch.where(geomi[4] != 0, geomi[2] * geomi[3], 0).sum())))
+        # The event timer against torch.profiler's kernel duration.
+        prof_ms = profiled_ms(lambda: coverage.coverage_masks(geomf, geomi,
+                                                              **kw))
+        say("coverage_profiler", event_ms=results["coverage_masks"]["ms"],
+            profiler_ms=prof_ms,
+            event_over_profiler=results["coverage_masks"]["ms"] / prof_ms)
 
         packed, offs = binning.pack_gaussians(splats_1m, cfg_1m)
         p = cfg_1m.pair_capacity
@@ -412,9 +603,11 @@ def main() -> int:
             "stream_expand",
             max_abs_err=exact_err("stream_expand", ("cols", "gid", "rank"),
                                   got, ref),
-            ms=cuda_ms(lambda: expand.stream_expand(packed, offs, p)),
+            ms=cuda_ms(lambda: expand.stream_expand(packed, offs, p),
+                       label="stream_expand"),
             plain_ms=cuda_ms(lambda: expand.stream_expand_torch(
-                packed, offs, p)),
+                packed, offs, p), label="stream_expand plain",
+                enforce=False),
             **bound(nbytes(packed, offs, *got), 0))
 
         # The three kernels of the rowseg and gather paths: the row scan
@@ -424,19 +617,55 @@ def main() -> int:
         splats_rs = project_gaussians(model_1m, cam_1m(0.0), cfg_rs)
         lay = binning.rowseg_layout(binning.footprints(splats_rs, cfg_rs),
                                     cfg_rs)
-        got = scan.row_cumsum_exclusive(lay.counts)
-        ref = scan.row_cumsum_exclusive_torch(lay.counts)
+        counts = lay.counts
+        got = scan.row_cumsum_exclusive(counts)
+        ref = scan.row_cumsum_exclusive_torch(counts)
         torch.cuda.synchronize()
+        err = exact_err("row_cumsum_exclusive", ("excl",), (got,), (ref,))
+
+        def e_new():
+            return cuda_ms(lambda: scan.row_cumsum_exclusive(counts),
+                           label="row_cumsum_exclusive")
+
+        if old_scan is None:
+            e_ms = [e_new()]
+        else:
+            # The parent's one-CTA-per-row kernel, in turns with the new
+            # one: old, new, new, old.
+            def e_old():
+                out = torch.empty_like(counts)
+                cuda_lib.check("old row_cumsum_exclusive",
+                               old_scan.gsplat_row_cumsum_exclusive(
+                                   counts.data_ptr(), *counts.shape,
+                                   out.data_ptr(),
+                                   cuda_lib.stream_handle(dev)))
+                return out
+
+            exact_err("old row_cumsum_exclusive", ("excl",), (e_old(),),
+                      (ref,))
+            old_ms = [cuda_ms(e_old, label="old row_cumsum_exclusive")]
+            e_ms = [e_new(), e_new()]
+            old_ms.append(cuda_ms(e_old, label="old row_cumsum_exclusive"))
+        words = cuda_lib.library().gsplat_row_cumsum_scratch_words(
+            *counts.shape)
+        say("row_scan", design="single-pass scan, decoupled look-back "
+            "(one warp, 32 predecessors a step), tile ticket by atomicAdd",
+            shape=list(counts.shape), ctas=words - 1,
+            tiles_per_row=(words - 1) // counts.shape[0], ms=e_ms,
+            old_one_cta_per_row_ms=old_ms if old_scan is not None
+            else "not measured (no --old)",
+            profiler_ms=profiled_ms(
+                lambda: scan.row_cumsum_exclusive(counts)))
         results["row_cumsum_exclusive"] = result(
-            "row_cumsum_exclusive",
-            max_abs_err=exact_err("row_cumsum_exclusive", ("excl",), (got,),
-                                  (ref,)),
-            ms=cuda_ms(lambda: scan.row_cumsum_exclusive(lay.counts)),
-            plain_ms=cuda_ms(lambda: scan.row_cumsum_exclusive_torch(
-                lay.counts)),
-            library_ms=cuda_ms(lambda: torch.cumsum(lay.counts, dim=1)),
+            "row_cumsum_exclusive", max_abs_err=err,
+            ms=float(np.median(e_ms)),
+            plain_ms=cuda_ms(lambda: scan.row_cumsum_exclusive_torch(counts),
+                             label="row_cumsum_exclusive plain",
+                             enforce=False),
+            library_ms=cuda_ms(lambda: torch.cumsum(counts, dim=1),
+                               label="row_cumsum_exclusive library"),
             library_call="torch.cumsum(x, dim=1) (inclusive scan)",
-            **bound(nbytes(lay.counts, got), lay.counts.numel()))
+            **bound(nbytes(counts, got), counts.numel()))
         seg_args = (binning.pack_gaussians(splats_rs, cfg_rs)[0], lay.offs,
                     lay.offs2, lay.live_end, lay.cap)
         got = expand.stream_expand_seg(*seg_args)
@@ -446,9 +675,10 @@ def main() -> int:
             "stream_expand_seg",
             max_abs_err=exact_err("stream_expand_seg", ("cols", "gid",
                                                         "rank"), got, ref),
-            ms=cuda_ms(lambda: expand.stream_expand_seg(*seg_args)),
+            ms=cuda_ms(lambda: expand.stream_expand_seg(*seg_args),
+                       label="stream_expand_seg"),
             plain_ms=cuda_ms(lambda: expand.stream_expand_seg_torch(
-                *seg_args)),
+                *seg_args), label="stream_expand_seg plain", enforce=False),
             **bound(nbytes(*seg_args[:4], *got), 0))
         gid_pre, _ = binning.gather_slots(offs, p)
         gid_long = gid_pre.long()
@@ -458,10 +688,12 @@ def main() -> int:
         results["expand_pairs"] = result(
             "expand_pairs",
             max_abs_err=exact_err("expand_pairs", ("cols",), (got,), (ref,)),
-            ms=cuda_ms(lambda: expand.expand_pairs(packed, gid_pre)),
-            plain_ms=cuda_ms(lambda: expand.expand_pairs_torch(packed,
-                                                               gid_pre)),
-            library_ms=cuda_ms(lambda: packed.index_select(0, gid_long)),
+            ms=cuda_ms(lambda: expand.expand_pairs(packed, gid_pre),
+                       label="expand_pairs"),
+            plain_ms=cuda_ms(lambda: expand.expand_pairs_torch(
+                packed, gid_pre), label="expand_pairs plain", enforce=False),
+            library_ms=cuda_ms(lambda: packed.index_select(0, gid_long),
+                               label="expand_pairs library"),
             library_call="packed.index_select(0, gid) (no transpose)",
             **bound(nbytes(packed, gid_pre, got), 0))
         del splats_rs, seg_args, got, ref, gid_long
@@ -495,9 +727,11 @@ def main() -> int:
                      f"version (tolerance {TOL_RASTER})")
             results[name] = result(
                 name, max_abs_err=err,
-                ms=cuda_ms(lambda: rasterize.rasterize_tiles(binned, cfg)),
+                ms=cuda_ms(lambda: rasterize.rasterize_tiles(binned, cfg),
+                           label=name),
                 plain_ms=cuda_ms(lambda: rasterize_tiles_torch(binned, cfg),
-                                 reps=3 if name.endswith("strict") else 5),
+                                 reps=3 if name.endswith("strict") else 5,
+                                 label=f"{name} plain", enforce=False),
                 **bound(raster_bytes(binned, cfg, 16),
                         OPS_FWD_LIVE * work[label]["live_evaluations"]))
         shapes = {
@@ -535,7 +769,7 @@ def main() -> int:
         for shape_name, binned, cfg, reps in (
                 ("1M 1280x720 g=3", binned_t1m, cfg_train_1m, 1),
                 ("app 640x360 g=1", binned_tapp, cfg_tapp, 3)):
-            chk = check_aux_and_bwd(binned, cfg, SEED + 5, reps)
+            chk = check_aux_and_bwd(binned, cfg, SEED + 5, reps, cuda_ms)
             checks[shape_name] = chk
             say("train_kernels", shape=shape_name,
                 tiles=binned.tile_starts.shape[0],
@@ -556,6 +790,8 @@ def main() -> int:
             ms=main_chk["bwd_ms"], plain_ms=main_chk["bwd_plain_ms"],
             **bound(raster_bytes(binned_t1m, cfg_train_1m, 24, 16),
                     OPS_BWD_LIVE * live_1m))
+        # The timer's spin check over every timing of this phase.
+        say("timer", **timer.summary())
 
         # The CUDA binning and rasterizer on a small scene against the CPU
         # spec (which the CPU tests hold to the JAX package), from the same

@@ -50,8 +50,10 @@ _SIGNATURES = {
                                  _P),
     # packed, gid, p, cols, stream
     "gsplat_expand_pairs": (_P, _P, _I, _P, _P),
-    # x, r, n, out, stream
-    "gsplat_row_cumsum_exclusive": (_P, _I, _I, _P, _P),
+    # r, n -> 64-bit scratch words of the row scan
+    "gsplat_row_cumsum_scratch_words": (_I, _I),
+    # x, r, n, out, scratch, stream
+    "gsplat_row_cumsum_exclusive": (_P, _I, _I, _P, _P, _P),
     # feats, p, starts, ends, num_tiles, tiles_x, tile_w, tile_h, chunk,
     # max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2, mode, out, nc,
     # stream

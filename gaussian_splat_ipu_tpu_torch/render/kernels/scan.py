@@ -4,7 +4,9 @@ of gaussian_splat_ipu_tpu/render/kernels/scan.py::row_cumsum_exclusive).
 The row-bucket segmented binning scans its per-bucket pair counts with it
 into per-bucket slot offsets (render/binning.py). `row_cumsum_exclusive`
 launches csrc/scan.cu on CUDA tensors and runs
-`row_cumsum_exclusive_torch`, the plain version, on CPU tensors.
+`row_cumsum_exclusive_torch`, the plain version, on CPU tensors. The
+kernel is a single-pass scan with decoupled look-back over R x ceil(N /
+tile) CTAs; see the note at the top of csrc/scan.cu.
 """
 
 from __future__ import annotations
@@ -33,9 +35,12 @@ def row_cumsum_exclusive(x: torch.Tensor) -> torch.Tensor:
     r, n = x.shape
     cuda_lib.require(x, "x", torch.int32, (r, n), x.device)
     out = torch.empty_like(x)
-    cuda_lib.check("row_cumsum_exclusive",
-                   cuda_lib.library().gsplat_row_cumsum_exclusive(
-                       x.data_ptr(), r, n, out.data_ptr(),
-                       cuda_lib.stream_handle(x.device)))
+    lib = cuda_lib.library()
+    # The look-back's ticket and tile status words; the entry zeroes them.
+    scratch = torch.empty(lib.gsplat_row_cumsum_scratch_words(r, n),
+                          dtype=torch.int64, device=x.device)
+    cuda_lib.check("row_cumsum_exclusive", lib.gsplat_row_cumsum_exclusive(
+        x.data_ptr(), r, n, out.data_ptr(), scratch.data_ptr(),
+        cuda_lib.stream_handle(x.device)))
     cuda_lib.launches["row_cumsum_exclusive"] += 1
     return out

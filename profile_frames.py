@@ -3,19 +3,23 @@
 
     python3 profile_frames.py [--iters 8]
 
-For four cells of chip_smoke.py (the app frame: 37,941 seeded gaussians,
+For five cells of chip_smoke.py (the app frame: 37,941 seeded gaussians,
 1280x720, relaxed; the 1M frame: 2^20 gaussians, tile_group=3, exact
 tiles, strict; the 1M train step, L1, against the model's own angle-0
 render; the train app's step: its 640x360 initial model against the
-scene's render, L1 + 0.2 SSIM) it runs 3 warm-up iterations, then
+scene's render, L1 + 0.2 SSIM; the rowseg 1M frame: chip_smoke.py's
+rowseg_config, tile_group=2, exact tiles, strict) it runs 3 warm-up
+iterations, then
   - pipelined ms: host wall time per iteration of --iters enqueued back
     to back and synchronised once; enqueue ms: the host time to issue
     them;
   - with torch.profiler over 3 iterations: device kernel ms per
     iteration (the sum of every CUDA kernel's time), the busy share
-    (device ms over pipelined ms), the kernel count, and the time and
-    share of kernels C (rasterize_fwd_kernel) and D (rasterize_bwd_kernel).
-One JSON line per cell, then the card's name and power limit.
+    (device ms over pipelined ms), the kernel count, and the largest
+    kernels; then, on a line each, the time, share of device time and
+    launches per iteration of each of the port's kernels A-F that ran.
+One JSON line per cell and one per kernel of it, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -32,8 +36,18 @@ import numpy as np
 
 import chip_smoke as smoke
 
+# The port's kernels by a part of their CUDA name, as torch.profiler
+# reports them.
+PORT_KERNELS = (("A coverage_masks", "coverage_masks_kernel"),
+                ("B stream_expand", "stream_expand_kernel"),
+                ("B stream_expand_seg", "stream_expand_seg_kernel"),
+                ("C rasterize_fwd", "rasterize_fwd_kernel"),
+                ("D rasterize_bwd", "rasterize_bwd_kernel"),
+                ("E row_scan", "row_scan"),
+                ("F expand_pairs", "expand_pairs_kernel"))
 
-def profile(fn, iters: int) -> dict:
+
+def profile(fn, iters: int) -> tuple:
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     for _ in range(3):
@@ -51,7 +65,7 @@ def profile(fn, iters: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device_us, kernels, by_name = 0.0, 0, {}
+    device_us, kernels, by_name, counts = 0.0, 0, {}, {}
     for ev in prof.key_averages():
         us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
         if us <= 0.0 or ev.device_type.name != "CUDA":
@@ -59,19 +73,23 @@ def profile(fn, iters: int) -> dict:
         device_us += us
         kernels += ev.count
         by_name[ev.key] = by_name.get(ev.key, 0.0) + us
+        counts[ev.key] = counts.get(ev.key, 0) + ev.count
     pipelined = (t2 - t0) * 1e3 / iters
     device = device_us / 1e3 / reps
     out = dict(pipelined_ms=pipelined, enqueue_ms=(t1 - t0) * 1e3 / iters,
                device_ms=device, busy_share=device / pipelined,
                kernels_per_iter=kernels / reps)
-    for label, key in (("C", "rasterize_fwd_kernel"),
-                       ("D", "rasterize_bwd_kernel")):
-        ms = sum(v for k, v in by_name.items() if key in k) / 1e3 / reps
-        out[f"{label}_ms"] = ms
-        out[f"{label}_share_of_device"] = ms / device if device else None
+    port = {}
+    for label, key in PORT_KERNELS:
+        names = [k for k in by_name if key in k]
+        if names:
+            ms = sum(by_name[k] for k in names) / 1e3 / reps
+            port[label] = dict(
+                ms=ms, share_of_device=ms / device,
+                launches_per_iter=sum(counts[k] for k in names) / reps)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out["largest"] = [(k[:60], v / 1e3 / reps) for k, v in top]
-    return out
+    return out, port
 
 
 def main() -> int:
@@ -154,10 +172,26 @@ def main() -> int:
     def step_app():
         trainer.train_step(state_t, cam_t, target_t, cfg_t, tc_t)
 
+    with torch.inference_mode():
+        cfg_rs, rs_info = smoke.rowseg_config(
+            binning, project_gaussians, model_1m,
+            lambda a: Camera.orbit(-bb, bb, fov, 1280 / 720, rot_y_deg=a,
+                                   device=dev),
+            RasterConfig(pair_capacity=1 << 22, tile_group=2,
+                         exact_tile_test=True))
+
+    def frame_rowseg():
+        with torch.inference_mode():
+            pipeline.render(model_1m, cam_1m, cfg_rs)
+
     for cell, fn in (("app 37.9k relaxed frame", app_frame),
                      ("1M frame", frame_1m), ("train 1M step", step_1m),
-                     ("train app 640x360 step", step_app)):
-        smoke.say("profile", cell=cell, **profile(fn, args.iters))
+                     ("train app 640x360 step", step_app),
+                     (f"rowseg 1M frame (R={rs_info['R']})", frame_rowseg)):
+        out, port = profile(fn, args.iters)
+        smoke.say("profile", cell=cell, **out)
+        for kernel, kv in port.items():
+            smoke.say("kernel_in_cell", cell=cell, kernel=kernel, **kv)
     print(card, flush=True)
     return 0
 

@@ -12,16 +12,15 @@ config at angle 0: 2^20 seeded gaussians, tile_group=3, exact tiles,
 1280x720; the 37,941-gaussian app frame, relaxed, 1280x720; the train
 app's first frame, 640x360), holds the old and the new kernels to each
 other (C: equal outputs and equal nc; D: the row-scaled bound of
-chip_smoke.py) and times each kernel old, new, new, old with CUDA events
-(medians of --reps launches). It prints one JSON line per kernel and
-frame, the compositing work of each frame, and the card's name and power
-limit.
+chip_smoke.py) and times each kernel old, new, new, old (medians of
+--reps launches by chip_smoke.DeviceTimer: device time, the wrapper's host
+work not counted). It prints one JSON line per kernel and frame, the
+compositing work of each frame, and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import os
 import subprocess
@@ -31,45 +30,6 @@ import tempfile
 import numpy as np
 
 import chip_smoke as smoke
-
-
-def build_old(src_dir: str, out_dir: str) -> ctypes.CDLL:
-    """nvcc each source of src_dir in parallel, link, load, bind."""
-    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = cuda_lib._nvcc()
-    srcs = [os.path.join(src_dir, f) for f in ("rasterize.cu",
-                                               "rasterize_bwd.cu")]
-    work = tempfile.mkdtemp(dir=out_dir)
-    objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
-    procs = [subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, "-c", "-o", o, s],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(srcs, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    if any(p.returncode for p in procs):
-        smoke.fail("nvcc failed on the old sources:\n" + "".join(logs))
-    lib_path = os.path.join(work, "libold.so")
-    subprocess.run([nvcc, "-shared", "-o", lib_path, *objs], check=True)
-    lib = ctypes.CDLL(lib_path)
-    for name in ("gsplat_rasterize_fwd", "gsplat_rasterize_bwd"):
-        fn = getattr(lib, name)
-        fn.argtypes = list(cuda_lib._SIGNATURES[name])
-        fn.restype = ctypes.c_int
-    return lib, ptxas_lines("".join(logs))
-
-
-def ptxas_lines(log: str) -> list:
-    """ptxas's register, shared-memory and spill lines of the compositing
-    kernels, each after the name of the entry it belongs to."""
-    out, keep = [], False
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            keep = "rasterize" in ln
-        if keep and ("Compiling entry" in ln or "Used" in ln
-                     or "spill" in ln):
-            out.append(ln.split(":", 1)[-1].strip())
-    return out
 
 
 def main() -> int:
@@ -92,15 +52,22 @@ def main() -> int:
     from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
     dev = torch.device("cuda", 0)
+    timer = smoke.DeviceTimer()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     new_lib = cuda_lib.library()
-    new_ptxas = ptxas_lines(cuda_lib.BuildInfo.log)
-    old_lib, old_ptxas = build_old(args.old, os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "_scratch", "ab_build"))
-    smoke.say("build", new_ptxas=new_ptxas, old_ptxas=old_ptxas)
+    names = ("gsplat_rasterize_fwd", "gsplat_rasterize_bwd")
+    old_lib, log = smoke.build_lib(
+        [os.path.join(args.old, f) for f in ("rasterize.cu",
+                                             "rasterize_bwd.cu")],
+        tempfile.mkdtemp(prefix="gsplat_ab_"),
+        {k: cuda_lib._SIGNATURES[k] for k in names})
+    smoke.say("build",
+              new_ptxas=smoke.ptxas_lines(cuda_lib.BuildInfo.log,
+                                          "rasterize"),
+              old_ptxas=smoke.ptxas_lines(log, "rasterize"))
 
     def on(lib, fn):
         saved, cuda_lib._lib = cuda_lib._lib, lib
@@ -181,8 +148,8 @@ def main() -> int:
                                           old)
                 turns = []
                 for lib in (old_lib, new_lib, new_lib, old_lib):
-                    turns.append(on(lib, lambda: smoke.cuda_ms(
-                        fn, reps=args.reps)))
+                    turns.append(on(lib, lambda: timer.ms(
+                        fn, reps=args.reps, label=f"{label} {name}")))
                 smoke.say("ab", frame=label, kernel=name,
                           old_ms=[turns[0], turns[3]],
                           new_ms=[turns[1], turns[2]],

@@ -65,6 +65,28 @@ def test_scan_plain_matches_pallas_interpret():
         scan.row_cumsum_exclusive_torch(torch.tensor(x)).numpy(), want)
 
 
+@pytest.mark.parametrize("r,n,low,high", [
+    (1, 1, 0, 60),                 # one element
+    (3, 2047, 0, 60),              # one short of a reference block
+    (2, 2049, 0, 60),              # one past it
+    (2, 3 * 8192 + 5, 0, 60),      # three kernel-E tiles and a ragged tail
+    (2, 5000, 1 << 28, 1 << 30),   # sums that wrap i32 many times
+])
+def test_scan_plain_matches_pallas_interpret_at_edges(r, n, low, high):
+    """Exact, wrap-around included: the reference sums in i32 (wrapping),
+    the plain version in i64 cast back to i32."""
+    x = np.random.default_rng(n).integers(low, high, (r, n),
+                                          dtype=np.int32)
+    want = np.asarray(jscan.row_cumsum_exclusive(jnp.asarray(x),
+                                                 interpret=True))
+    if high > 1 << 20:
+        assert (x.astype(np.int64).sum(1) > np.iinfo(np.int32).max).all()
+    for fn in (scan.row_cumsum_exclusive, scan.row_cumsum_exclusive_torch):
+        got = fn(torch.tensor(x))
+        assert got.dtype == torch.int32 and got.shape == (r, n)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_bucket_helpers_match_jax(monkeypatch):
     """_bucket_counts (equal and uneven bounds), bucket_demands and
     balance_bounds equal the reference's; exact, integer. (The reference's

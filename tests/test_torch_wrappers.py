@@ -67,6 +67,26 @@ def new_kernels_match(splats, packed, offs):
                        expand.expand_pairs_torch(packed, gid_pre))
 
 
+# Kernel E's awkward shapes, (R, N, low, high, offset): counts drawn from
+# [low, high), the rows starting `offset` elements past an aligned
+# address. N not a multiple of 4 (scalar loads), N below one tile, a row
+# start off 16 B, more tiles than the card holds at once, i32 wrap.
+SCAN_CASES = ((1, 1, 0, 9, 0), (3, 4099, 0, 9, 0), (2, 2049, 0, 9, 0),
+              (2, 3 * 8192 + 8, 0, 9, 1), (3, 1 << 22, 0, 9, 0),
+              (2, 5000, 1 << 28, 1 << 30, 0))
+
+
+def scan_matches_at_awkward_shapes(device):
+    rng = np.random.default_rng(7)
+    for r, n, low, high, off in SCAN_CASES:
+        flat = torch.empty(r * n + off, dtype=torch.int32, device=device)
+        x = flat[off:].view(r, n)
+        x.copy_(torch.from_numpy(rng.integers(low, high, (r, n),
+                                              dtype=np.int32)))
+        assert torch.equal(scan.row_cumsum_exclusive(x),
+                           scan.row_cumsum_exclusive_torch(x)), (r, n, off)
+
+
 KW = dict(tw=32.0, th=32.0, alpha_min=1.0 / 255.0)
 
 
@@ -105,6 +125,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(rasterize.rasterize_tiles(binned, CFG),
                        rasterize_tiles_torch(binned, CFG))
     new_kernels_match(splats_on("cpu"), packed, offs)
+    scan_matches_at_awkward_shapes("cpu")
     assert sum(cuda_lib.launches.values()) == 0
 
 
@@ -149,11 +170,13 @@ def test_kernels_match_plain_versions_on_the_card():
                         expand.stream_expand_torch(packed, offs, 4096)):
             assert torch.equal(a, b)
         new_kernels_match(splats_on("cuda"), packed, offs)
+        scan_matches_at_awkward_shapes("cuda")
         raster_kernels_match(binned, CFG)
         raster_kernels_match(binned3, cfg3)
         torch.cuda.synchronize()
     assert cuda_lib.launches == {"coverage_masks": 2, "stream_expand": 1,
-                                 "row_cumsum_exclusive": 2,
+                                 "row_cumsum_exclusive":
+                                 2 + len(SCAN_CASES),
                                  "stream_expand_seg": 1, "expand_pairs": 1,
                                  "rasterize_strict": 2,
                                  "rasterize_relaxed": 2,
