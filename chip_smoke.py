@@ -49,9 +49,35 @@ Phases, each printing its own lines:
   8. the app with --rowseg 4 at its default --pair-capacity, 8 frames;
   9. the gather paths at 1M: one frame each with presort_depth,
      fused_sort_key=False (the exact two-pass sort) and
-     expand_kernel=False.
-The launch counters are zeroed just before each of phases 3-9 and read
-just after it: every kernel must have carried the path that uses it.
+     expand_kernel=False;
+ 10. the render engine (runtime/engine.py), the app's splat program
+     captured as a CUDA graph: the app's 37,941-gaussian scene at
+     1280x720 (relaxed) and the 1M config (tile_group=3, exact tiles,
+     strict), ENGINE_EQ_FRAMES replays each, their outputs held until
+     all have run (2 and more in flight), each equal bit for bit to the
+     eager render of the same angle (image, tile_counts, overflow,
+     truncated, pairs); pipelined ms per frame, eager and replayed in
+     turns, the median of ENGINE_FRAMES frames with 2 in flight; the
+     replay's device time (DeviceTimer), the device time of both by
+     torch.profiler, and the capture seconds;
+ 11. --device points on the card: the app's PNG, histogram and count,
+     and the points program through the engine at three angles, equal
+     to the plain CPU render_points / tile_histogram of the same model
+     and camera;
+ 12. the app with --ui-port on the card (37,941 gaussians, 1280x720, the
+     probe capacity read back from phase 3's --compile-cache): an
+     in-process InterfaceClient gets `ready`, sends lambda2 and fov,
+     decodes a (720, 1280) preview, gets a histogram with overflow and
+     truncated 0, switches to points and back (`device`; the
+     histogram's total tells the programs apart), detaches, reconnects
+     to a key frame and stops the app, which returns 0. Every wait has
+     a deadline of UI_DEADLINE_S.
+The launch counters are zeroed just before each of phases 3-12 and read
+just after it: every kernel must have carried the path that uses it. The
+app (phases 3, 8, 12) runs its frames as graph replays, which launch
+through no wrapper: a kernel of a captured program counts
+engine.WARMUP_CALLS + 1 launches (warm-up and capture) however many
+frames are replayed, and the engine phase checks that replays count 0.
 Neither jax nor the JAX package (gaussian_splat_ipu_tpu) may be imported.
 Then one JSON line of per-kernel results, the card line, and last the
 status line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -107,6 +133,10 @@ RS_CAP_TARGET = 1 << 18
 RS_SLACK = 1.08
 RS_FRAMES = 3
 RS_TRAIN_STEPS = 2
+# Engine phase: replays held to eager, and frames timed per pipelined run.
+ENGINE_EQ_FRAMES = 8
+ENGINE_FRAMES = 24
+UI_DEADLINE_S = 60.0
 # DeviceTimer: the least spin queued before each timed run, the cycles of
 # the spin that measures the rate it runs at, and the device time and the
 # most calls of one timed run.
@@ -388,6 +418,234 @@ def need_launches(path: str, launches: dict, names, least: int):
                  f"than {least}: {launches}")
 
 
+def need_exact(path: str, launches: dict, names, count: int):
+    for k in names:
+        if launches.get(k, 0) != count:
+            fail(f"{path} launched {k} {launches.get(k, 0)} times, not "
+                 f"{count}: {launches}")
+
+
+def pipelined_ms(step, frames: int, in_flight: int = 2) -> list:
+    """The app loop's pacing: step(k) for k = 0..frames, each followed by
+    an event, the oldest event waited for once `in_flight` are
+    outstanding. Returns the host ms between consecutive retirements
+    (`frames` values)."""
+    import collections
+
+    import torch
+    inflight, times, t_prev = collections.deque(), [], None
+
+    def retire():
+        nonlocal t_prev
+        inflight.popleft().synchronize()
+        now = time.perf_counter()
+        if t_prev is not None:
+            times.append((now - t_prev) * 1e3)
+        t_prev = now
+
+    for k in range(frames + 1):
+        step(k)
+        ev = torch.cuda.Event()
+        ev.record()
+        inflight.append(ev)
+        if len(inflight) >= in_flight:
+            retire()
+    while inflight:
+        retire()
+    return times
+
+
+def engine_check(label, model, cfg, host_cam, angles, timer):
+    """Phase 10 for one scene: the app's splat program captured by a
+    RenderEngine, ENGINE_EQ_FRAMES replays against the eager render of
+    the same angle, then pipelined and device times. host_cam(angle) is
+    the frame's camera on the CPU. Returns (facts, the register's
+    launches)."""
+    import torch
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    dev = model.device
+    splat = app_main.splat_program(cfg)
+
+    def host_args(a):
+        cam = host_cam(a)
+        return model, cam.view, cam.proj, cam.env_rot
+
+    def dev_args(a):
+        m, *cam = host_args(a)
+        return (m, *(t.to(dev) for t in cam))
+
+    def eager(a):
+        with torch.inference_mode():
+            return splat(*dev_args(a))
+
+    eng = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    cuda_lib.launches.clear()
+    eng.register("project", splat, dev_args(angles[0]))
+    captured = dict(cuda_lib.launches)
+    seq = [angles[k % len(angles)] for k in range(ENGINE_EQ_FRAMES)]
+    outs = [eng.run("project", *host_args(a)) for a in seq]
+    torch.cuda.synchronize()
+    if dict(cuda_lib.launches) != captured:
+        fail(f"engine {label}: replays launched through a wrapper: "
+             f"{dict(cuda_lib.launches)} after capture {captured}")
+    for k, (a, out) in enumerate(zip(seq, outs)):
+        want = eager(a)
+        for name, x, y in zip(out._fields, out, want):
+            if not torch.equal(x, y):
+                fail(f"engine {label}: replay {k} (angle {a}) {name} "
+                     f"differs from the eager render")
+        if int(out.overflow) or int(out.truncated):
+            fail(f"engine {label}: replay {k} dropped pairs")
+    n = len(angles)
+    turns = [("eager", lambda k: eager(angles[k % n])),
+             ("replay", lambda k: eng.run("project",
+                                          *host_args(angles[k % n])))]
+    times = {"eager": [], "replay": []}
+    for name, step in turns + turns[::-1]:      # eager, replay, replay, eager
+        times[name].append(float(np.median(pipelined_ms(step,
+                                                        ENGINE_FRAMES))))
+    return dict(
+        frames_held_equal=len(seq), angles=list(angles),
+        pairs=[int(o.count) for o in outs[:n]],
+        capture_s=eng.programs["project"].compile_seconds,
+        pipelined_eager_ms=times["eager"], pipelined_replay_ms=times["replay"],
+        frames_per_median=ENGINE_FRAMES,
+        replay_device_ms=timer.ms(
+            lambda: eng.run("project", *host_args(angles[0])),
+            label=f"engine {label} replay"),
+        replay_profiler_ms=profiled_ms(
+            lambda: eng.run("project", *host_args(angles[0])), reps=3),
+        eager_profiler_ms=profiled_ms(lambda: eager(angles[0]), reps=3),
+        reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20), captured
+
+
+def ui_session(ply_path: str, probe_cache: str, out_png: str) -> dict:
+    """Phase 12: the app with --ui-port on the card, driven by an
+    in-process InterfaceClient; fails on any step that does not happen
+    within UI_DEADLINE_S. Returns what the session saw."""
+    import json as json_lib
+    import socket
+    import threading
+
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    from gaussian_splat_ipu_tpu_torch.ui.server import InterfaceClient
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    result = {}
+
+    def run_app():
+        try:
+            result["rc"] = app_main.main([
+                "--input", ply_path, "--width", str(WIDTH), "--height",
+                str(HEIGHT), "--ui-port", str(port), "--device", "cuda",
+                "--pair-capacity", "0", "--compile-cache", probe_cache,
+                "--output", out_png, "--log-level", "warn"])
+        except BaseException as e:
+            result["error"] = repr(e)
+
+    def connect(what):
+        deadline = time.monotonic() + UI_DEADLINE_S
+        while True:
+            try:
+                cli = InterfaceClient("127.0.0.1", port, timeout=2.0)
+                break
+            except OSError:
+                if "error" in result or time.monotonic() > deadline:
+                    fail(f"ui: could not connect ({what}): {result}")
+                time.sleep(0.1)
+        next_packet(cli, lambda t, _: t == "ready", f"ready ({what})")
+        return cli
+
+    def next_packet(cli, accept, what):
+        deadline = time.monotonic() + UI_DEADLINE_S
+        while time.monotonic() < deadline:
+            try:
+                ptype, payload = cli.recv()
+            except socket.timeout:
+                continue
+            except (ConnectionError, OSError) as e:
+                fail(f"ui: connection lost waiting for {what}: {e!r}")
+            if accept(ptype, payload):
+                return ptype, payload
+        fail(f"ui: no {what} within {UI_DEADLINE_S} s")
+
+    def histogram(cli, accept, what):
+        def take(ptype, payload):
+            return ptype == "tile_histogram" and accept(
+                json_lib.loads(payload.decode()))
+        return json_lib.loads(next_packet(cli, take, what)[1].decode())
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run_app, daemon=True)
+    thread.start()
+    cli = connect("first")
+    ready_s = time.perf_counter() - t0
+    cli.send("lambda2", 30.0)
+    cli.send("fov", 0.6)
+    frames = []
+
+    def decoded(ptype, payload):
+        if ptype == "render_preview":
+            f = cli.decode_preview(payload)
+            if f is not None:
+                frames.append(f.shape)
+                return True
+        return False
+
+    next_packet(cli, decoded, "a decoded preview frame")
+    if frames[0][:2] != (HEIGHT, WIDTH):
+        fail(f"ui: preview frame of shape {frames[0]}")
+    hist = histogram(cli, lambda h: True, "a histogram")
+    if hist["overflow"] or hist["truncated"] or hist["exchange_overflow"]:
+        fail(f"ui: the histogram reports drops: {hist}")
+    splat_total = sum(hist["counts"])
+    # The points histogram counts at most one entry per gaussian, the
+    # splat one every (gaussian, tile) pair.
+    n = APP_GAUSSIANS
+    cli.send("device", "points")
+    pts = histogram(cli, lambda h: sum(h["counts"]) <= n, "a points frame")
+    cli.send("device", "cuda")
+    back = histogram(cli, lambda h: sum(h["counts"]) > n,
+                     "a splat frame after points")
+    cli.send("detach")
+    cli.sock.settimeout(0.2)
+    deadline = time.monotonic() + UI_DEADLINE_S
+    while True:
+        try:
+            cli.recv()
+        except socket.timeout:
+            pass
+        except (ConnectionError, OSError):
+            break
+        if time.monotonic() > deadline:
+            fail("ui: the detached client was not dropped")
+    cli.close()
+    if not thread.is_alive():
+        fail(f"ui: the app stopped on detach: {result}")
+    cli = connect("after detach")
+    _, key = next_packet(cli, lambda t, _: t == "render_preview",
+                         "a preview after reconnecting")
+    if key[4] != 0:
+        fail("ui: the stream did not restart on a key frame")
+    key_shape = cli.decode_preview(key).shape
+    cli.send("stop")
+    thread.join(timeout=UI_DEADLINE_S)
+    cli.close()
+    if thread.is_alive() or result.get("rc") != 0:
+        fail(f"ui: the app did not stop with rc 0: {result}")
+    return dict(port=port, ready_s=ready_s, preview_shape=list(frames[0]),
+                splat_histogram_total=splat_total,
+                points_histogram_total=sum(pts["counts"]),
+                splat_again_total=sum(back["counts"]),
+                keyframe_shape=list(key_shape), rc=result["rc"],
+                wall_s=time.perf_counter() - t0)
+
+
 def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int, cuda_ms):
     """The strict aux forward and the backward kernel against their plain
     versions on one binned frame: returns a dict of errors and times
@@ -478,6 +736,7 @@ def main() -> int:
     from gaussian_splat_ipu_tpu_torch.models.gaussians import (
         FIELDS, GaussianModel)
     from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
+    from gaussian_splat_ipu_tpu_torch.render import points as points_render
     from gaussian_splat_ipu_tpu_torch.render.kernels import (
         coverage, cuda_lib, expand, rasterize, scan)
     from gaussian_splat_ipu_tpu_torch.render.projection import (
@@ -486,7 +745,9 @@ def main() -> int:
         rasterize_backward_torch, rasterize_tiles_torch)
     from gaussian_splat_ipu_tpu_torch.train import trainer
     from gaussian_splat_ipu_tpu_torch.utils import image as image_util
-    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
+                                                          RuntimeConfig)
     import gaussian_splat_ipu_tpu_torch.app.main as app_main
     import gaussian_splat_ipu_tpu_torch.app.train as app_train
 
@@ -871,25 +1132,29 @@ def main() -> int:
     # -- 3. the app ---------------------------------------------------------
     launches = {}
     out_png = os.path.join(tmp, "app.png")
+    probe_cache = os.path.join(tmp, "probe_cache")
+    captured = engine_lib.WARMUP_CALLS + 1   # launches of a captured kernel
     t0 = time.perf_counter()
     stats, launches["app"] = counted(cuda_lib, lambda: app_main.run([
         "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
         "--frames", "8", "--pair-capacity", "0", "--device", "cuda",
-        "--output", out_png, "--log-level", "warn"]))
+        "--compile-cache", probe_cache, "--output", out_png,
+        "--log-level", "warn"]))
     app_s = time.perf_counter() - t0
     img = image_util.decode_png(open(out_png, "rb").read())
     if img.shape != (HEIGHT, WIDTH, 4) or img[..., :3].max() == 0:
         fail(f"app PNG is blank or misshapen: {img.shape}")
-    need_launches("app run", launches["app"],
-                  ("stream_expand", "rasterize_relaxed"), 8)
+    # The demand probe runs B eagerly; the frames replay the graph.
+    need_launches("app run", launches["app"], ("stream_expand",), captured)
+    need_exact("app run", launches["app"], ("rasterize_relaxed",), captured)
     if stats["overflow"] or stats["truncated"]:
         fail(f"app run dropped pairs: {stats}")
     say("app", gaussians=APP_GAUSSIANS, frames=stats["frames"],
         pair_capacity=stats["pair_capacity"], num_pairs=stats["num_pairs"],
         overflow=stats["overflow"], truncated=stats["truncated"],
         median_frame_ms=stats["median_ms"], frame_ms=stats["frame_ms"],
-        wall_s=app_s, launches=launches["app"],
-        lit_pixels=int((img[..., 3] > 0).sum()))
+        wall_s=app_s, capture_s=stats["capture_seconds"],
+        launches=launches["app"], lit_pixels=int((img[..., 3] > 0).sum()))
 
     # -- 4. the 1M config ---------------------------------------------------
     def frames_1m():
@@ -1091,9 +1356,9 @@ def main() -> int:
         "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
         "--frames", "8", "--rowseg", "4", "--device", "cuda",
         "--output", out_rs_png, "--log-level", "warn"]))
-    need_launches("app --rowseg 4", launches["app_rowseg"],
-                  ("row_cumsum_exclusive", "stream_expand_seg",
-                   "rasterize_relaxed"), 8)
+    need_exact("app --rowseg 4", launches["app_rowseg"],
+               ("row_cumsum_exclusive", "stream_expand_seg",
+                "rasterize_relaxed"), captured)
     if stats_rs["overflow"] or stats_rs["truncated"]:
         fail(f"app --rowseg 4 dropped pairs: {stats_rs}")
     img_rs = image_util.decode_png(open(out_rs_png, "rb").read())
@@ -1137,6 +1402,95 @@ def main() -> int:
             truncated=int(o.truncated),
             max_abs_diff_vs_default=float((o.image - flat_img).abs().max()),
             launches=launches[f"1m_{name}"])
+
+    # -- 10. the render engine ------------------------------------------
+    app_angles = tuple(360.0 * i / 8 for i in range(8))
+    cfg_eng_app = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
+                               pair_capacity=stats["pair_capacity"],
+                               strict_termination=False)
+
+    def app_cam(a):
+        state = dict(fov=fov, rx=0.0, ry=a, x=0.0, y=0.0, z=0.0, erx=0.0,
+                     ery=0.0)
+        return app_main.orbit_camera(app_scene, state, aspect)
+
+    def cam_1m_host(a):
+        return Camera.orbit(-bb1, bb1, fov, aspect, rot_y_deg=a,
+                            device="cpu")
+
+    for label, model, cfg, cam_of, angles, kernels in (
+            ("app 37.9k", app_scene.model, cfg_eng_app, app_cam, app_angles,
+             ("stream_expand", "rasterize_relaxed")),
+            ("1M", model_1m, cfg_1m, cam_1m_host, angles_1m,
+             ("coverage_masks", "stream_expand", "rasterize_strict"))):
+        facts, launches[f"engine {label}"] = engine_check(
+            label, model, cfg, cam_of, angles, timer)
+        need_exact(f"engine {label} capture", launches[f"engine {label}"],
+                   kernels, captured)
+        say("engine", cell=label, **facts,
+            launches=launches[f"engine {label}"])
+
+    # -- 11. --device points on the card --------------------------------
+    pts_png = os.path.join(tmp, "points.png")
+    pts_frames = 3
+    pts_stats, launches["points"] = counted(cuda_lib, lambda: app_main.run([
+        "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
+        "--frames", str(pts_frames), "--device", "points",
+        "--output", pts_png, "--log-level", "warn"]))
+    scene_cpu = scene_io.load_scene(ply_path, device="cpu")
+    cfg_pts = RasterConfig(image_width=WIDTH, image_height=HEIGHT)
+
+    def points_ref(a):
+        state = dict(fov=fov, rx=0.0, ry=a, x=0.0, y=0.0, z=0.0, erx=0.0,
+                     ery=0.0)
+        cam = app_main.orbit_camera(scene_cpu, state, aspect)
+        with torch.inference_mode():
+            return (cam, points_render.render_points(scene_cpu.model, cam,
+                                                     cfg_pts),
+                    points_render.tile_histogram(scene_cpu.model, cam,
+                                                 cfg_pts))
+
+    _, ref_img, ref_hist = points_ref(360.0 * (pts_frames - 1) / pts_frames)
+    got_png = image_util.decode_png(open(pts_png, "rb").read())
+    if not np.array_equal(got_png, image_util.to_uint8(
+            ref_img.image.numpy())):
+        fail("--device points: the PNG differs from the CPU render_points")
+    if not (np.array_equal(pts_stats["tile_counts"], ref_hist.numpy())
+            and pts_stats["num_pairs"] == int(ref_img.count)
+            == int(ref_hist.sum())):
+        fail(f"--device points: histogram or count differs from the CPU "
+             f"(count {pts_stats['num_pairs']} vs {int(ref_img.count)})")
+    eng_pts = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    points_fn = app_main.points_program(cfg_pts)
+    cam0_pts = points_ref(0.0)[0]
+    eng_pts.register("points", points_fn, (
+        app_scene.model, cam0_pts.view.to(dev), cam0_pts.proj.to(dev),
+        cam0_pts.env_rot.to(dev)))
+    for a in (0.0, 100.0, 250.0):
+        cam, ref_img, ref_hist = points_ref(a)
+        out = eng_pts.run("points", app_scene.model, cam.view, cam.proj,
+                          cam.env_rot)
+        if not (torch.equal(out.image.cpu(), ref_img.image)
+                and torch.equal(out.tile_counts.cpu(), ref_hist)
+                and int(out.count) == int(ref_img.count)):
+            fail(f"points program at {a} deg: the card's image, histogram "
+                 "or count differs from the CPU")
+    say("points", frames=pts_stats["frames"], count=pts_stats["num_pairs"],
+        histogram_total=int(pts_stats["tile_counts"].sum()),
+        lit_pixels=int((got_png[..., 3] > 0).sum()),
+        median_frame_ms=pts_stats["median_ms"],
+        capture_s=eng_pts.programs["points"].compile_seconds,
+        engine_angles_equal=3, launches=launches["points"])
+    del eng_pts
+
+    # -- 12. the remote UI ------------------------------------------------
+    ui_facts, launches["ui"] = counted(cuda_lib, lambda: ui_session(
+        ply_path, probe_cache, os.path.join(tmp, "ui.png")))
+    # The probe is read back from phase 3's cache, so B runs no eager
+    # frame: only the splat program's warm-up and capture launch.
+    need_exact("ui app", launches["ui"],
+               ("stream_expand", "rasterize_relaxed"), captured)
+    say("ui", **ui_facts, launches=launches["ui"])
 
     for name, r in results.items():
         r["launches"] = sum(path.get(name, 0) for path in launches.values())

@@ -16,7 +16,9 @@ PLY parser and writer (io/ply.py).
 Public surface:
 
   models    GaussianModel (nn.Module), Camera
-  render    render / render_image / render_depth
+  render    render / render_image / render_depth, points.render_points
   io        load_scene, Scene
+  runtime   RenderEngine (programs captured as CUDA graphs)
+  ui        InterfaceServer / InterfaceClient, the viewer CLI
   app       python -m gaussian_splat_ipu_tpu_torch.app.main --input s.ply
 """

@@ -31,15 +31,13 @@ from gaussian_splat_ipu_tpu_torch.io.scene import load_scene
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
+from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.train import checkpoint, losses, trainer
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       check_supported)
 
 log = logging.getLogger("gsplat")
 
-_LEVELS = {"trace": logging.DEBUG, "debug": logging.DEBUG,
-           "info": logging.INFO, "warn": logging.WARNING,
-           "err": logging.ERROR, "off": logging.CRITICAL}
 _LOG_EVERY_EPOCHS = 10
 
 # Flags of the reference CLI that this port does not carry yet: (dest,
@@ -95,7 +93,8 @@ def parse_args(argv=None):
     p.add_argument("--downscale", type=int, default=1, help="not ported yet")
     p.add_argument("--holdout-every", type=int, default=0,
                    help="not ported yet")
-    p.add_argument("--log-level", default="info", choices=list(_LEVELS))
+    p.add_argument("--log-level", default="info",
+                   choices=list(engine_lib.LOG_LEVELS))
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda = the CUDA kernels; cpu = their plain torch "
                         "versions")
@@ -182,9 +181,7 @@ def run(argv=None) -> dict:
     overflow and truncation of the target renders and the final render,
     the final loss, PSNR and step."""
     args = parse_args(argv)
-    logging.basicConfig(level=_LEVELS[args.log_level],
-                        format="[%(asctime)s] [%(levelname)s] %(message)s",
-                        datefmt="%H:%M:%S")
+    engine_lib.setup_logging(args.log_level)
     device = torch.device(args.device)
     on_cuda = device.type == "cuda"
     if on_cuda:

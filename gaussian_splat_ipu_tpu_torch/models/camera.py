@@ -30,6 +30,16 @@ class Camera:
                       self.proj.to(device, non_blocking=non_blocking),
                       self.env_rot.to(device, non_blocking=non_blocking))
 
+    @property
+    def view_proj(self) -> torch.Tensor:
+        """proj @ view, as four f32 products summed in order, one op at a
+        time: the same bits on the CPU and on CUDA (a matmul sums in
+        another order on each)."""
+        out = self.proj[:, 0:1] * self.view[0:1, :]
+        for k in range(1, 4):
+            out = out + self.proj[:, k:k + 1] * self.view[k:k + 1, :]
+        return out
+
     def focals(self, width: int, height: int):
         """Pixel focal lengths and fov tangents from the projection:
         focal = proj[0,0]*W/2, tan(half fov) = 1/proj[0,0]."""

@@ -132,10 +132,14 @@ def transform_points(matrix: torch.Tensor, points: torch.Tensor
 
 def clip_to_screen(clip: torch.Tensor, width, height) -> torch.Tensor:
     """Perspective divide + viewport transform -> (N, 2) pixel coords
-    (reference Viewport::clipSpaceToViewport: no y flip)."""
+    (reference Viewport::clipSpaceToViewport: no y flip). The viewport
+    scale is a product with Python floats, exact in f32 like the
+    reference's f32 [width, height], and needs no host-to-device copy (a
+    CUDA graph cannot capture one)."""
     w = clip[..., 3:4]
     xy = clip[..., 0:2] * (0.5 / w) + 0.5
-    return xy * torch.tensor([width, height], dtype=F32, device=clip.device)
+    return torch.stack([xy[..., 0] * float(width),
+                        xy[..., 1] * float(height)], dim=-1)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,8 @@
 reference's (gaussian_splat_ipu_tpu/utils/config.py:25-221) with the same
 fields in the same order, the same defaults and the same derived
 properties, plus the check that rejects the settings the reference
-rejects. Tests move a config between the packages field by field
-(`dataclasses.asdict`)."""
+rejects, and the render engine's `RuntimeConfig`. Tests move a raster
+config between the packages field by field (`dataclasses.asdict`)."""
 
 from __future__ import annotations
 
@@ -99,6 +99,24 @@ class RasterConfig:
     @property
     def pixels_per_tile(self) -> int:
         return self.tile_width * self.tile_height
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Runtime knobs of the render engine (port of the reference's
+    RuntimeConfig, gaussian_splat_ipu_tpu/utils/config.py:224-236).
+
+    `device` takes the place of use_cpu_model: "cuda" runs the programs as
+    CUDA graphs on the card, "cpu" runs them eagerly on the CPU. Left out,
+    having no counterpart in the port: num_devices (the distributed path
+    is not ported), exe_name and compile_only (there is no executable to
+    name or to stop after: a CUDA graph is captured and replayed in one
+    process) and donate_buffers (a graph's static inputs are reused every
+    replay, which is what donation bought XLA)."""
+
+    device: str = "cuda"
+    # Directory of the app's pair-capacity probe cache ("" = no cache).
+    compile_cache_dir: str = ""
 
 
 def tile_bits(cfg: RasterConfig) -> int:

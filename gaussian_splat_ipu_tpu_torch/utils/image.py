@@ -1,6 +1,7 @@
-"""PNG encode/decode with the standard library alone, the port's own copy
-of the reference's codec (gaussian_splat_ipu_tpu/utils/image.py): the same
-bytes out, and it reads what either package writes."""
+"""PNG encode/decode with the standard library alone, and JPEG through PIL
+where PIL is installed: the port's own copy of the reference's codecs
+(gaussian_splat_ipu_tpu/utils/image.py), the same bytes out, and it reads
+what either package writes."""
 
 from __future__ import annotations
 
@@ -46,6 +47,26 @@ def encode_png(image: np.ndarray) -> bytes:
 def write_png(path: str, image: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(image))
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 85):
+    """u8 (H, W[, C]) -> JPEG bytes via PIL, or None when PIL is absent
+    (the preview stream then codes its key frames as PNG). Alpha is
+    dropped."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    import io
+
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        img = to_uint8(img)
+    if img.ndim == 3 and img.shape[-1] == 4:
+        img = img[..., :3]
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=quality)
+    return buf.getvalue()
 
 
 def decode_png(data: bytes) -> np.ndarray:

@@ -3,9 +3,11 @@
 
     python3 profile_frames.py [--iters 8]
 
-For five cells of chip_smoke.py (the app frame: 37,941 seeded gaussians,
-1280x720, relaxed; the 1M frame: 2^20 gaussians, tile_group=3, exact
-tiles, strict; the 1M train step, L1, against the model's own angle-0
+For seven cells of chip_smoke.py (the app frame: 37,941 seeded
+gaussians, 1280x720, relaxed; the 1M frame: 2^20 gaussians,
+tile_group=3, exact tiles, strict; each of the two replayed as a CUDA
+graph by the app's RenderEngine, with the camera copied in from the host
+each call; the 1M train step, L1, against the model's own angle-0
 render; the train app's step: its 640x360 initial model against the
 scene's render, L1 + 0.2 SSIM; the rowseg 1M frame: chip_smoke.py's
 rowseg_config, tile_group=2, exact tiles, strict) it runs 3 warm-up
@@ -105,8 +107,11 @@ def main() -> int:
     from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
     from gaussian_splat_ipu_tpu_torch.render.projection import (
         project_gaussians)
+    from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
     from gaussian_splat_ipu_tpu_torch.train import trainer
-    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+    from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
+                                                          RuntimeConfig)
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -184,8 +189,25 @@ def main() -> int:
         with torch.inference_mode():
             pipeline.render(model_1m, cam_1m, cfg_rs)
 
+    # The same two frames replayed as CUDA graphs by the app's engine,
+    # each call copying a camera made on the host, as the app does.
+    engine = RenderEngine(RuntimeConfig(device="cuda"))
+    replays = {}
+    for name, model, cfg, bb_min, bb_max in (
+            ("app", app.model, cfg_app, app.bb_min, app.bb_max),
+            ("1m", model_1m, cfg_1m, -bb, bb)):
+        cam = Camera.orbit(bb_min, bb_max, fov, 1280 / 720, device="cpu")
+        host = (model, cam.view, cam.proj, cam.env_rot)
+        engine.register(name, app_main.splat_program(cfg),
+                        (model, *(t.to(dev) for t in host[1:])))
+        replays[name] = (lambda name=name, host=host:
+                         engine.run(name, *host))
+
     for cell, fn in (("app 37.9k relaxed frame", app_frame),
-                     ("1M frame", frame_1m), ("train 1M step", step_1m),
+                     ("app 37.9k relaxed frame, replayed", replays["app"]),
+                     ("1M frame", frame_1m),
+                     ("1M frame, replayed", replays["1m"]),
+                     ("train 1M step", step_1m),
                      ("train app 640x360 step", step_app),
                      (f"rowseg 1M frame (R={rs_info['R']})", frame_rowseg)):
         out, port = profile(fn, args.iters)

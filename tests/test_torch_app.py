@@ -1,8 +1,10 @@
 """The port's CLI (gaussian_splat_ipu_tpu_torch.app.main) on the CPU: the
 PNG it writes equals the port's render at the app's camera, the demand
-probe sizes the table, --rowseg renders the flat path's PNG, unported flags
-are refused, and scene loading matches the JAX package's."""
+probe sizes the table and its cache is read back, --rowseg and any
+--frames-in-flight render the same frames, unported flags are refused,
+and scene loading matches the JAX package's."""
 
+import json
 import os
 
 import numpy as np
@@ -83,8 +85,7 @@ def test_cli_rowseg_png_matches_flat(ply, tmp_path):
     assert pngs[1][..., 3].max() > 0
 
 
-@pytest.mark.parametrize("flags", [
-    ["--device", "points"], ["--ui-port", "9000"], ["--distributed", "4"]])
+@pytest.mark.parametrize("flags", [["--distributed", "4"]])
 def test_cli_rejects_unported_flags(ply, flags, capsys):
     with pytest.raises(SystemExit) as e:
         app.parse_args(["--input", ply] + flags)
@@ -97,6 +98,78 @@ def test_cli_cuda_without_a_card_fails(ply, tmp_path):
         pytest.skip("a CUDA card is present: this checks the CPU-only case")
     with pytest.raises(SystemExit, match="no CUDA device"):
         app.run(["--input", ply, "--output", str(tmp_path / "o.png")])
+
+
+def test_cli_points_without_a_card_fails(ply, tmp_path):
+    """--device points runs the points program on the card, never on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: this checks the CPU-only case")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        app.run(["--input", ply, "--device", "points",
+                 "--output", str(tmp_path / "o.png")])
+
+
+@pytest.mark.parametrize("in_flight", ["1", "3"])
+def test_frames_in_flight_give_the_same_frames(ply, tmp_path, in_flight):
+    """Every retired frame, and the PNG, equal those of the default two
+    frames in flight."""
+    pngs = {}
+    for depth in ("2", in_flight):
+        frames = tmp_path / f"frames{depth}"
+        out = tmp_path / f"out{depth}.png"
+        stats = app.run(["--input", ply, "--width", "64", "--height", "48",
+                         "--device", "cpu", "--output", str(out),
+                         "--frames", "4", "--frames-in-flight", depth,
+                         "--dump-frames", str(frames),
+                         "--pair-capacity", "4096", "--log-level", "warn"])
+        assert stats["frames"] == 4
+        pngs[depth] = [decode_png(open(frames / f"frame_{i:05d}.png",
+                                       "rb").read()) for i in range(4)]
+        np.testing.assert_array_equal(decode_png(out.read_bytes()),
+                                      pngs[depth][-1])
+    for a, b in zip(pngs["2"], pngs[in_flight]):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(pngs["2"][0], pngs["2"][1])  # orbit moves
+
+
+def test_probe_cache_hit_and_stale_version(ply, tmp_path, monkeypatch):
+    """--pair-capacity 0 with --compile-cache probes once, reads the
+    capacity back on the next start, and probes again for another
+    resolution or an entry of another cache version. The file is replaced
+    whole (no temporary file stays)."""
+    calls = []
+
+    def probe(scene, width, height, fov, device, **kw):
+        calls.append((width, height))
+        return 1024 + 128 * len(calls)
+
+    monkeypatch.setattr(app, "_auto_pair_capacity", probe)
+    cache = tmp_path / "cache"
+    common = ["--input", ply, "--device", "cpu", "--pair-capacity", "0",
+              "--compile-cache", str(cache), "--output",
+              str(tmp_path / "o.png"), "--log-level", "warn"]
+
+    def start(w="64", h="48"):
+        return app.run(common + ["--width", w, "--height", h])
+
+    assert start()["pair_capacity"] == 1152 and len(calls) == 1
+    assert start()["pair_capacity"] == 1152 and len(calls) == 1   # hit
+    assert start("32", "32")["pair_capacity"] == 1280             # new key
+    assert len(calls) == 2
+    cache_file = cache / app.PROBE_CACHE_FILE
+    data = json.loads(cache_file.read_text())
+    assert data["version"] == app.PROBE_CACHE_VERSION
+    assert len(data["entries"]) == 2
+    assert sorted(os.listdir(cache)) == [app.PROBE_CACHE_FILE]
+    data["version"] = app.PROBE_CACHE_VERSION - 1
+    cache_file.write_text(json.dumps(data))
+    assert start()["pair_capacity"] == 1408 and len(calls) == 3   # stale
+    data = json.loads(cache_file.read_text())
+    assert data["version"] == app.PROBE_CACHE_VERSION
+    assert list(data["entries"].values()) == [1408]
+    cache_file.write_text("{not json")
+    assert start()["pair_capacity"] == 1536 and len(calls) == 4   # torn
 
 
 def test_load_scene_matches_jax(ply):

@@ -62,6 +62,39 @@ def test_render_matches_jax(tile_group, exact, sh_degree):
     assert int(got.truncated) == int(want.truncated)
 
 
+# The settings the projection branches on (queue 3 of ROADMAP.md), end to
+# end: the footprint bound in sigmas (0.0 = the full alpha_min radius),
+# the SH band cap (0, 1, and the model's degree 3), raw opacities.
+SETTINGS = [dict(extent_sigma=0.0), dict(extent_sigma=2.0),
+            dict(active_sh_degree=0), dict(active_sh_degree=1),
+            dict(active_sh_degree=3), dict(sigmoid_opacity=False)]
+
+
+@pytest.mark.parametrize("change", SETTINGS,
+                         ids=lambda c: ",".join(f"{k}={v}"
+                                                for k, v in c.items()))
+def test_render_settings_match_jax(change):
+    cfg = dataclasses.replace(CFG, **change)
+    jm, jc, tm, tc = scene(4, 1500, sh_degree=3)
+    if not cfg.sigmoid_opacity:   # raw opacities: activated values
+        opac = np.random.default_rng(5).uniform(0.0, 1.0, 1500).astype(
+            np.float32)
+        jm = JModel(jm.means, jm.log_scales, jm.quats, jnp.asarray(opac),
+                    jm.sh)
+        tm = GaussianModel.from_numpy({**tm.to_numpy(), "opacities": opac},
+                                      device="cpu")
+    want = jpipe.render(jm, jc, jax_config(cfg), use_pallas=False)
+    got = pipeline.render(tm, tc, cfg)
+    np.testing.assert_allclose(got.image.numpy(), np.asarray(want.image),
+                               atol=3e-5, rtol=1e-4)
+    assert int(got.num_pairs) == int(want.num_pairs) > 0
+    np.testing.assert_array_equal(got.visible.numpy(),
+                                  np.asarray(want.visible))
+    np.testing.assert_array_equal(got.tile_counts.numpy(),
+                                  np.asarray(want.tile_counts))
+    assert int(got.overflow) == int(want.overflow) == 0
+
+
 def test_truncated_telemetry_deduped_per_group():
     cfg = dataclasses.replace(CFG, tile_group=2, max_chunks_per_tile=1)
     jm, jc, tm, tc = scene(1, 2000)

@@ -1,6 +1,8 @@
 """Projection parity: the torch port against the JAX package on identical
 numpy inputs (cameras, transforms, ops and project_gaussians)."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -58,6 +60,43 @@ def test_projected_splats_match_jax(sh_degree, antialias, env_rot):
     vis_j = np.asarray(want.radius[:, 0] > 0)
     np.testing.assert_array_equal(got.radius[:, 0].numpy() > 0, vis_j)
     assert 0 < vis_j.sum() < len(vis_j)   # some culled, some kept
+
+
+# The settings the projection branches on: the footprint bound in sigmas
+# (0.0 = the full alpha_min radius), the SH band cap (0, 1, and the
+# model's degree 3) and raw opacities (no sigmoid).
+SETTINGS = [dict(extent_sigma=0.0), dict(extent_sigma=2.0),
+            dict(active_sh_degree=0), dict(active_sh_degree=1),
+            dict(active_sh_degree=3), dict(sigmoid_opacity=False)]
+
+
+@pytest.mark.parametrize("change", SETTINGS,
+                         ids=lambda c: ",".join(f"{k}={v}"
+                                                for k, v in c.items()))
+def test_projection_settings_match_jax(change):
+    cfg = dataclasses.replace(CFG, **change)
+    params = scene_params(4, 800, 3)
+    if not cfg.sigmoid_opacity:   # raw opacities: activated values
+        params["opacities"] = np.random.default_rng(5).uniform(
+            0.0, 1.0, 800).astype(np.float32)
+    jm, tm = both_models(params)
+    jc = JCamera.orbit(-BB, BB, np.radians(40.0), 160 / 96, rot_y_deg=-50.0,
+                       env_rot=(0.2, 0.4))
+    tc = Camera.from_numpy(np.asarray(jc.view), np.asarray(jc.proj),
+                           np.asarray(jc.env_rot), device="cpu")
+    want = j_project(jm, jc, jax_config(cfg))
+    got = project_gaussians(tm, tc, cfg)
+    for name in want._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    vis_j = np.asarray(want.radius[:, 0] > 0)
+    np.testing.assert_array_equal(got.radius[:, 0].numpy() > 0, vis_j)
+    assert 0 < vis_j.sum() < len(vis_j)
+    # Each setting changes what the default computes.
+    base = project_gaussians(tm, tc, CFG)
+    assert any(not torch.equal(getattr(got, f), getattr(base, f))
+               for f in got._fields) != (change == dict(active_sh_degree=3))
 
 
 def test_xy_probe_shifts_screen_position():
