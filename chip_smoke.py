@@ -40,7 +40,8 @@ Phases, each printing its own lines:
      same model at angle 0, capacity 1.15x that view's demand, L1 loss;
   6. the train app (app/train.py) in distill mode on the 37,941-gaussian
      PLY at 640x360 over 8 orbit views, with a checkpoint that a second
-     run resumes for one more step;
+     run resumes for one more step (each step a replay of the captured
+     step, the programs registered after the resume);
   7. rowseg 1M: benchmarks/bench_1m.py's balanced row-bucket config
      (tile_group=2, exact_tile_test, strict; bounds from balance_bounds
      over the worst bucket demands of 4 orbit views, R and per-bucket
@@ -59,7 +60,18 @@ Phases, each printing its own lines:
      truncated, pairs); pipelined ms per frame, eager and replayed in
      turns, the median of ENGINE_FRAMES frames with 2 in flight; the
      replay's device time (DeviceTimer), the device time of both by
-     torch.profiler, and the capture seconds;
+     torch.profiler, and the capture seconds. Then the train step
+     captured as a train program (trainer.register_step) in the two train
+     cells, train 1M (phase 5's config, targets rendered at other angles
+     so the step has a gradient) and train app 640x360 (phase 6's): the
+     state after register equal to its snapshot bit for bit; STEP_EQ_STEPS
+     replays, each held to the eager step from the same state (losses,
+     Adam moments and parameters within the backward's row-scaled bound,
+     a parameter past it only where the moment's bound leaves the sign of
+     Adam's step open, and then within 4 learning rates; counts, the
+     means schedule count and step equal), replays counting no launch;
+     pipelined ms of eager and replayed steps in turns, the replay's
+     device time, both profiler device times and the capture seconds;
  11. --device points on the card: the app's PNG, histogram and count,
      and the points program through the engine at three angles, equal
      to the plain CPU render_points / tile_histogram of the same model
@@ -71,13 +83,27 @@ Phases, each printing its own lines:
      truncated 0, switches to points and back (`device`; the
      histogram's total tells the programs apart), detaches, reconnects
      to a key frame and stops the app, which returns 0. Every wait has
-     a deadline of UI_DEADLINE_S.
-The launch counters are zeroed just before each of phases 3-12 and read
+     a deadline of UI_DEADLINE_S;
+ 13. posed-image datasets at full width: a COLMAP capture of the app
+     scene (DS_VIEWS orbit views at 1280x720 rendered on the card, PINHOLE
+     intrinsics, OpenCV poses, every DS_POINTS_EVERY-th gaussian mean with
+     its dc colour as the SfM cloud) trained by app/train.py --dataset
+     (--holdout-every DS_HOLDOUT, exact tiles, DS_PAIR_SLACK x the probed
+     demand of the SfM initialisation, DS_STEPS steps, checkpoint, PLY
+     and .splat export): initialised from the SfM points, overflow 0 on
+     every view, the loss falling, the holdout PSNR above the initial
+     model's; app/eval.py on the exported PLY equal to the train CLI's
+     holdout PSNR within EVAL_PSNR_TOL dB; the app rendering the .splat;
+     and a transforms.json set of TJ_VIEWS straight-alpha RGBA views at
+     TJ_SIZE x TJ_SIZE trained over a white background from a random
+     initialisation for TJ_STEPS steps.
+The launch counters are zeroed just before each of phases 3-13 and read
 just after it: every kernel must have carried the path that uses it. The
-app (phases 3, 8, 12) runs its frames as graph replays, which launch
-through no wrapper: a kernel of a captured program counts
-engine.WARMUP_CALLS + 1 launches (warm-up and capture) however many
-frames are replayed, and the engine phase checks that replays count 0.
+apps (phases 3, 6, 8, 12, 13) run their frames and steps as graph
+replays, which launch through no wrapper: a kernel of a captured program
+counts engine.WARMUP_CALLS + 1 launches (warm-up and capture) however
+many frames or steps are replayed, and the engine phase checks that
+replays count 0.
 Neither jax nor the JAX package (gaussian_splat_ipu_tpu) may be imported.
 Then one JSON line of per-kernel results, the card line, and last the
 status line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -137,6 +163,24 @@ RS_TRAIN_STEPS = 2
 ENGINE_EQ_FRAMES = 8
 ENGINE_FRAMES = 24
 UI_DEADLINE_S = 60.0
+# Engine phase, train cells: replays held to the eager step, and steps
+# timed per pipelined run.
+STEP_EQ_STEPS = 3
+STEP_PIPE_STEPS = 16
+# Dataset phase: the COLMAP capture's views, holdout, steps (2 epochs of
+# the 21 training views), orbit (radius, height above the centre of the
+# app scene's [-1, 1]^3 cloud), vertical fov, SfM cloud thinning and pair
+# capacity over the probed demand; the transforms.json set's views, size
+# and steps; the eval CLI's agreement with the train CLI.
+DS_VIEWS = 24
+DS_HOLDOUT = 8
+DS_STEPS = 42
+DS_RADIUS, DS_HEIGHT = 3.5, 0.8
+DS_FOV_Y_DEG = 40.0
+DS_POINTS_EVERY = 4
+DS_PAIR_SLACK = 1.3
+TJ_VIEWS, TJ_SIZE, TJ_STEPS = 8, 800, 8
+EVAL_PSNR_TOL = 0.01
 # DeviceTimer: the least spin queued before each timed run, the cycles of
 # the spin that measures the rate it runs at, and the device time and the
 # most calls of one timed run.
@@ -520,6 +564,347 @@ def engine_check(label, model, cfg, host_cam, angles, timer):
             lambda: eng.run("project", *host_args(angles[0])), reps=3),
         eager_profiler_ms=profiled_ms(lambda: eager(angles[0]), reps=3),
         reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20), captured
+
+
+def step_err(label, got, ref, loss, want, tc) -> dict:
+    """A replayed step's state `got` against the eager step's `ref`, both
+    from the same state: the losses, each group's Adam moments and its
+    parameters within the backward's row-scaled bound (TOL_BWD_*, rows =
+    one component over all gaussians). A parameter may pass its bound
+    only where the eager first moment of its gaussian is itself within
+    its bound of zero, so that the bound leaves the sign of Adam's step
+    (about one learning rate) open; there it must stay within 4 learning
+    rates, and such entries are counted. Counts, the means schedule count
+    and step must be equal."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.train import trainer
+    lr = dict(means=tc.lr_means * tc.scene_extent,
+              log_scales=tc.lr_log_scales, quats=tc.lr_quats,
+              opacities=tc.lr_opacities, sh=tc.lr_sh)
+
+    def rows(x):
+        x = x.detach()
+        return x.reshape(x.shape[0], -1).T
+
+    out = dict(loss=float(loss), loss_eager=float(want))
+    if not abs(out["loss"] - out["loss_eager"]) <= (
+            TOL_BWD_ROW + TOL_BWD_REL) * abs(out["loss_eager"]):
+        fail(f"{label}: loss {out['loss']} against the eager step's "
+             f"{out['loss_eager']}")
+    for name in trainer.LABELS:
+        a, b = got.opt_state.adam[name], ref.opt_state.adam[name]
+        if not torch.equal(a.count, b.count):
+            fail(f"{label}: {name} Adam count differs from the eager step")
+        errs = dict(mu=bwd_err(f"{label} {name} mu", rows(a.mu), rows(b.mu)),
+                    nu=bwd_err(f"{label} {name} nu", rows(a.nu), rows(b.nu)))
+        mu = rows(b.mu).abs()
+        free = (mu <= TOL_BWD_ROW * mu.amax(-1, keepdim=True)
+                + TOL_BWD_REL * mu).any(0)
+        p, q = rows(getattr(got.params, name)), rows(getattr(ref.params,
+                                                             name))
+        err = (p - q).abs()
+        over = err > (TOL_BWD_ROW * q.abs().amax(-1, keepdim=True)
+                      + TOL_BWD_REL * q.abs())
+        sign_free = over & free & (err <= 4.0 * lr[name])
+        if not bool(torch.isfinite(p).all()) or bool(
+                (over & ~sign_free).any()):
+            fail(f"{label}: {int((over & ~sign_free).sum())} {name} entries "
+                 f"outside the bound; max abs error {float(err.max())}")
+        out[name] = dict(errs, param=float(err.max()),
+                         sign_free=int(sign_free.sum()))
+    if not (torch.equal(got.opt_state.means_lr_count,
+                        ref.opt_state.means_lr_count)
+            and torch.equal(got.step, ref.step)):
+        fail(f"{label}: schedule count or step differs from the eager step")
+    return out
+
+
+def step_check(label, model, cfg, tc, cams, targets, timer):
+    """Phase 10 for one train cell: the train step registered from a fresh
+    state, the state afterwards equal to its snapshot bit for bit;
+    STEP_EQ_STEPS replays, each held to the eager step from the same state
+    (step_err) and launching nothing; then pipelined ms per step, eager
+    and replayed in turns (medians of STEP_PIPE_STEPS), the replay's
+    device time, both profiler device times and the capture seconds. The
+    steps cycle through cams / targets. Returns (facts, the register's
+    launches)."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.train import trainer
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    dev = model.device
+    n = len(cams)
+    state = trainer.init_state(model.trainable(), tc)
+    snapshot = state.to_numpy()
+    eng = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    cuda_lib.launches.clear()
+    prog = trainer.register_step(eng, state, cams[0], targets[0], cfg, tc)
+    captured = dict(cuda_lib.launches)
+    for i, (a, b) in enumerate(zip(state.to_numpy(), snapshot)):
+        if not np.array_equal(a, b):
+            fail(f"train {label}: register left leaf {i} of the state "
+                 "other than its snapshot")
+    del snapshot
+    held = []
+    for k in range(STEP_EQ_STEPS):
+        eager = trainer.TrainState.from_numpy(state.to_numpy(), dev)
+        before = dict(cuda_lib.launches)
+        loss = eng.run(trainer.STEP_PROGRAM, state, cams[k % n],
+                       targets[k % n])
+        torch.cuda.synchronize()
+        if dict(cuda_lib.launches) != before:
+            fail(f"train {label}: a replay launched through a wrapper")
+        _, want = trainer.train_step(eager, cams[k % n], targets[k % n],
+                                     cfg, tc)
+        held.append(step_err(f"train {label} step {k}", state, eager, loss,
+                             want, tc))
+        del eager
+    timed = trainer.TrainState.from_numpy(state.to_numpy(), dev)
+
+    def eager_step(k):
+        trainer.train_step(timed, cams[k % n], targets[k % n], cfg, tc)
+
+    def replay_step(k):
+        eng.run(trainer.STEP_PROGRAM, state, cams[k % n], targets[k % n])
+
+    turns = [("eager", eager_step), ("replay", replay_step)]
+    times = {"eager": [], "replay": []}
+    for name, step in turns + turns[::-1]:      # eager, replay, replay, eager
+        times[name].append(float(np.median(pipelined_ms(step,
+                                                        STEP_PIPE_STEPS))))
+    return dict(
+        gaussians=model.num_gaussians, capture_s=prog.compile_seconds,
+        state_equal_after_register=True, steps_held=len(held), held=held,
+        pipelined_eager_ms=times["eager"], pipelined_replay_ms=times["replay"],
+        steps_per_median=STEP_PIPE_STEPS,
+        replay_device_ms=timer.ms(lambda: replay_step(0),
+                                  label=f"train {label} replay"),
+        replay_profiler_ms=profiled_ms(lambda: replay_step(0), reps=3),
+        eager_profiler_ms=profiled_ms(lambda: eager_step(0), reps=3),
+        reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20), captured
+
+
+def orbit_poses(n: int, radius: float, height: float) -> list:
+    """n OpenCV world-to-camera poses (4x4 f64) on a circle of `radius`
+    around the origin, `height` above it, each looking at the origin (z
+    forward, y down)."""
+    out = []
+    for i in range(n):
+        a = 2.0 * np.pi * i / n
+        eye = np.array([radius * np.sin(a), -height, radius * np.cos(a)])
+        z = -eye / np.linalg.norm(eye)
+        x = np.cross(z, [0.0, 1.0, 0.0])
+        x /= np.linalg.norm(x)
+        w2c = np.eye(4)
+        w2c[:3, :3] = np.stack([x, np.cross(z, x), z])
+        w2c[:3, 3] = -w2c[:3, :3] @ eye
+        out.append(w2c)
+    return out
+
+
+def render_views(model, cfg, poses, intr, size, dev) -> list:
+    """The port's render of `model` at each OpenCV pose (pinhole `intr`,
+    size (W, H)) as (H, W, 4) host arrays; fails on dropped pairs."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    from gaussian_splat_ipu_tpu_torch.render import pipeline
+    out = []
+    with torch.inference_mode():
+        for w2c in poses:
+            cam = Camera.from_intrinsics(*intr, *size, w2c.astype(np.float32),
+                                         device=dev)
+            o = pipeline.render(model, cam, cfg)
+            if int(o.overflow) or int(o.truncated):
+                fail("dataset capture: a render dropped pairs")
+            out.append(o.image.cpu().numpy())
+    return out
+
+
+def write_capture(root: str, model, poses, intr, images) -> int:
+    """A COLMAP capture under root: images/view_XXX.png, and sparse/0 with
+    one PINHOLE camera per view, the poses, and every DS_POINTS_EVERY-th
+    gaussian mean of `model` with its dc colour as the SfM cloud. Returns
+    the cloud's size."""
+    from gaussian_splat_ipu_tpu_torch.io import colmap
+    from gaussian_splat_ipu_tpu_torch.ops.sh import SH_C0
+    from gaussian_splat_ipu_tpu_torch.utils import image as image_util
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    cams, imgs = {}, {}
+    for i, (w2c, img) in enumerate(zip(poses, images)):
+        name = f"view_{i:03d}.png"
+        image_util.write_png(os.path.join(root, "images", name),
+                             img[..., :3])
+        h, w = img.shape[:2]
+        cams[i + 1] = ("PINHOLE", w, h, list(intr))
+        imgs[i + 1] = (name, colmap.rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3],
+                       i + 1, [])
+    p = model.to_numpy()
+    xyz = p["means"][::DS_POINTS_EVERY].astype(np.float64)
+    rgb = image_util.to_uint8(SH_C0 * p["sh"][::DS_POINTS_EVERY, 0] + 0.5)
+    points = {k + 1: (tuple(xyz[k]), tuple(int(c) for c in rgb[k]), [])
+              for k in range(len(xyz))}
+    colmap.write_binary_model(os.path.join(root, "sparse", "0"), cams, imgs,
+                              points)
+    return len(xyz)
+
+
+def write_transforms_rgba(root: str, poses, fov_x: float, images) -> None:
+    """A blender transforms.json set: straight-alpha RGBA PNGs r_i.png
+    (bare stems in the json) and OpenGL camera-to-world matrices."""
+    import json as json_lib
+    from gaussian_splat_ipu_tpu_torch.utils import image as image_util
+    os.makedirs(root, exist_ok=True)
+    gl_to_cv = np.diag([1.0, -1.0, -1.0, 1.0])
+    frames = []
+    for i, (w2c, img) in enumerate(zip(poses, images)):
+        a = img[..., 3:4]
+        rgba = np.concatenate([img[..., :3] / np.maximum(a, 1e-6), a], -1)
+        image_util.write_png(os.path.join(root, f"r_{i}.png"), rgba)
+        frames.append({"file_path": f"r_{i}", "transform_matrix":
+                       (np.linalg.inv(w2c) @ gl_to_cv).tolist()})
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json_lib.dump({"camera_angle_x": fov_x, "frames": frames}, f)
+
+
+def dataset_phase(tmp: str, app_scene, dev, launches: dict) -> dict:
+    """Phase 13: the COLMAP capture trained, scored by the eval CLI and
+    exported as .splat, and the transforms.json set; launches of each run
+    go into `launches`. Returns what the phase saw."""
+    import torch
+    import gaussian_splat_ipu_tpu_torch.app.eval as app_eval
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    import gaussian_splat_ipu_tpu_torch.app.train as app_train
+    from gaussian_splat_ipu_tpu_torch.io import colmap
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.render import binning
+    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.utils import image as image_util
+    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+    captured = engine_lib.WARMUP_CALLS + 1
+    t0 = time.perf_counter()
+    f = 0.5 * HEIGHT / np.tan(np.radians(DS_FOV_Y_DEG) / 2.0)
+    intr = (f, f, WIDTH / 2.0, HEIGHT / 2.0)
+    poses = orbit_poses(DS_VIEWS, DS_RADIUS, DS_HEIGHT)
+    cfg_big = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
+                           pair_capacity=1 << 21, exact_tile_test=True)
+    root = os.path.join(tmp, "colmap_capture")
+    n_points = write_capture(root, app_scene.model, poses, intr,
+                             render_views(app_scene.model, cfg_big, poses,
+                                          intr, (WIDTH, HEIGHT), dev))
+    # The pair demand of the SfM initialisation over every view.
+    fs, xyz, rgb = colmap.load_colmap(root, device=dev)
+    init = GaussianModel.from_points(xyz, rgb, sh_degree=3, device=dev)
+    with torch.inference_mode():
+        demand = max(int(b.num_pairs + b.overflow) for b in (
+            binning.bin_splats(project_gaussians(init, c, cfg_big), cfg_big)
+            for c in fs.cameras))
+    c = cfg_big.chunk_size
+    cap = -(-int(DS_PAIR_SLACK * demand) // c) * c
+    capture_s = time.perf_counter() - t0
+    del fs, init
+
+    ckpt = os.path.join(tmp, "ds.npz")
+    ply = os.path.join(tmp, "ds.ply")
+    splat = os.path.join(tmp, "ds.splat")
+    common = ["--dataset", root, "--holdout-every", str(DS_HOLDOUT),
+              "--exact-tiles", "--pair-capacity", str(cap), "--device",
+              "cuda", "--log-level", "warn"]
+    start = app_train.run(common + ["--steps", "0"])
+    t0 = time.perf_counter()
+    st, launches["dataset train"] = counted(cuda_lib, lambda: app_train.run(
+        common + ["--steps", str(DS_STEPS), "--checkpoint", ckpt,
+                  "--export-ply", ply, "--export-splat", splat]))
+    train_s = time.perf_counter() - t0
+    need_exact("dataset train", launches["dataset train"],
+               ("rasterize_strict_aux", "rasterize_bwd", "rasterize_strict"),
+               captured)
+    need_exact("dataset train", launches["dataset train"],
+               ("coverage_masks", "stream_expand"), 2 * captured)
+    views = DS_VIEWS - len(range(0, DS_VIEWS, DS_HOLDOUT))
+    if not (st["init"] == f"{n_points} SfM points"
+            and st["num_gaussians"] == n_points and st["views"] == views):
+        fail(f"dataset train: init {st['init']}, {st['views']} views")
+    drops = (st["target_overflow"] + st["target_truncated"]
+             + st["holdout_overflow"] + [st["final_overflow"],
+                                         st["final_truncated"]])
+    if any(drops):
+        fail(f"dataset train dropped pairs: {st}")
+    first = float(np.mean(st["losses"][:views]))
+    last = float(np.mean(st["losses"][-views:]))
+    if not (np.isfinite(st["losses"]).all() and last < first):
+        fail(f"dataset train: the loss did not fall ({first} -> {last})")
+    if not (np.isfinite(st["eval_psnr"])
+            and st["eval_psnr"] > start["eval_psnr"]):
+        fail(f"dataset train: holdout PSNR {st['eval_psnr']} not above the "
+             f"initial model's {start['eval_psnr']}")
+
+    ev, launches["dataset eval"] = counted(cuda_lib, lambda: app_eval.run([
+        "--input", ply, "--dataset", root, "--split", "holdout",
+        "--holdout-every", str(DS_HOLDOUT), "--exact-tiles",
+        "--pair-capacity", str(cap), "--device", "cuda", "--log-level",
+        "warn"]))
+    need_exact("dataset eval", launches["dataset eval"],
+               ("rasterize_strict", "coverage_masks"), captured)
+    if abs(ev["mean_psnr"] - st["eval_psnr"]) > EVAL_PSNR_TOL:
+        fail(f"eval CLI mean PSNR {ev['mean_psnr']} against the train "
+             f"CLI's holdout PSNR {st['eval_psnr']}")
+
+    splat_png = os.path.join(tmp, "splat.png")
+    sp, launches["dataset splat app"] = counted(cuda_lib, lambda: app_main.run(
+        ["--input", splat, "--width", str(WIDTH), "--height", str(HEIGHT),
+         "--frames", "2", "--pair-capacity", "0", "--device", "cuda",
+         "--output", splat_png, "--log-level", "warn"]))
+    img = image_util.decode_png(open(splat_png, "rb").read())
+    if sp["overflow"] or int((img[..., 3] > 0).sum()) == 0:
+        fail(f"the app's render of the exported .splat is empty or dropped "
+             f"pairs: {sp['overflow']}")
+
+    fov = np.radians(DS_FOV_Y_DEG)          # square views: fov x = fov y
+    ft = 0.5 * TJ_SIZE / np.tan(fov / 2.0)
+    tj_poses = orbit_poses(TJ_VIEWS, DS_RADIUS, DS_HEIGHT)
+    tj_root = os.path.join(tmp, "transforms_rgba")
+    write_transforms_rgba(tj_root, tj_poses, float(fov), render_views(
+        app_scene.model, dataclasses.replace(cfg_big, image_width=TJ_SIZE,
+                                             image_height=TJ_SIZE),
+        tj_poses, (ft, ft, TJ_SIZE / 2.0, TJ_SIZE / 2.0),
+        (TJ_SIZE, TJ_SIZE), dev))
+    tj, launches["dataset transforms"] = counted(cuda_lib, lambda:
+                                                 app_train.run([
+        "--dataset", tj_root, "--background", "white", "--steps",
+        str(TJ_STEPS), "--device", "cuda", "--log-level", "warn"]))
+    need_exact("dataset transforms", launches["dataset transforms"],
+               ("rasterize_strict_aux", "rasterize_bwd"), captured)
+    if (any(tj["target_overflow"]) or tj["final_overflow"]
+            or not np.isfinite(tj["losses"]).all()
+            or not tj["init"].endswith("random gaussians")):
+        fail(f"transforms.json run: {tj}")
+    return dict(
+        views=DS_VIEWS, width=WIDTH, height=HEIGHT, holdout_every=DS_HOLDOUT,
+        train_views=views, sfm_points=n_points, init=st["init"],
+        probed_demand=demand, pair_capacity=cap, steps=DS_STEPS,
+        loss_first=st["losses"][0], loss_last=st["losses"][-1],
+        first_epoch_loss=first, last_epoch_loss=last,
+        step_ms=st["step_ms"], median_step_ms=float(np.median(
+            st["step_ms"][1:])), pipelined_ms=st["pipelined_ms"],
+        median_pipelined_ms=float(np.median(st["pipelined_ms"])),
+        capture_s=st["capture_seconds"], psnr_view0=st["psnr"],
+        holdout_psnr_init=start["eval_psnr"], holdout_psnr=st["eval_psnr"],
+        eval_mean_psnr=ev["mean_psnr"], eval_mean_ssim=ev["mean_ssim"],
+        eval_views=ev["views"], final_pairs=st["num_pairs"],
+        checkpoint_bytes=os.path.getsize(ckpt),
+        splat_records=os.path.getsize(splat) // 32,
+        splat_app_lit_pixels=int((img[..., 3] > 0).sum()),
+        splat_app_pairs=sp["num_pairs"], write_and_probe_s=capture_s,
+        train_wall_s=train_s, transforms=dict(
+            views=TJ_VIEWS, size=TJ_SIZE, steps=TJ_STEPS, init=tj["init"],
+            loss_first=tj["losses"][0], loss_last=tj["losses"][-1],
+            psnr_view0=tj["psnr"], step_ms=tj["step_ms"],
+            pipelined_ms=tj["pipelined_ms"],
+            capture_s=tj["capture_seconds"], pairs=tj["num_pairs"]))
 
 
 def ui_session(ply_path: str, probe_cache: str, out_png: str) -> dict:
@@ -1246,9 +1631,12 @@ def main() -> int:
     tstats, launches["train_app"] = counted(cuda_lib, lambda: app_train.run(
         common + ["--steps", str(TRAIN_STEPS_APP), "--checkpoint", ckpt]))
     train_s = time.perf_counter() - t0
-    need_launches("train app", launches["train_app"],
-                  ("stream_expand", "rasterize_strict_aux",
-                   "rasterize_bwd"), TRAIN_STEPS_APP)
+    # The steps are replays: D and C's aux mode launch only in the step
+    # program's warm-ups and capture.
+    need_launches("train app", launches["train_app"], ("stream_expand",),
+                  captured)
+    need_exact("train app", launches["train_app"],
+               ("rasterize_strict_aux", "rasterize_bwd"), captured)
     first = float(np.mean(tstats["losses"][:TRAIN_VIEWS]))
     last = float(np.mean(tstats["losses"][-TRAIN_VIEWS:]))
     if not (np.isfinite(tstats["losses"]).all() and last < first):
@@ -1262,6 +1650,8 @@ def main() -> int:
     resumed, launches["train_app_resume"] = counted(
         cuda_lib, lambda: app_train.run(common + ["--steps", "1",
                                                   "--resume", ckpt]))
+    need_exact("train app resume", launches["train_app_resume"],
+               ("rasterize_strict_aux", "rasterize_bwd"), captured)
     if resumed["step"] != TRAIN_STEPS_APP + 1 or not np.isfinite(
             resumed["losses"]).all():
         fail(f"train app resume: step {resumed['step']}, losses "
@@ -1275,7 +1665,10 @@ def main() -> int:
         final_overflow=tstats["final_overflow"],
         first_epoch_loss=first, last_epoch_loss=last, psnr=tstats["psnr"],
         median_step_ms=float(np.median(tstats["step_ms"][1:])),
-        step_ms=tstats["step_ms"], wall_s=train_s,
+        step_ms=tstats["step_ms"],
+        median_pipelined_ms=float(np.median(tstats["pipelined_ms"])),
+        pipelined_ms=tstats["pipelined_ms"],
+        capture_s=tstats["capture_seconds"], wall_s=train_s,
         checkpoint_bytes=os.path.getsize(ckpt),
         resumed_step=resumed["step"], resumed_loss=resumed["losses"][0],
         launches=launches["train_app"])
@@ -1430,6 +1823,36 @@ def main() -> int:
         say("engine", cell=label, **facts,
             launches=launches[f"engine {label}"])
 
+    # The train step as a captured program: train 1M (phase 5's model,
+    # capacity and L1 loss, its camera at angle 0, targets rendered at
+    # other angles so that every step has a gradient) and train app
+    # 640x360 (phase 6's initialisation, views and targets). Cameras and
+    # targets are made outside inference mode: autograd may save them.
+    cams_t = [Camera.orbit(app_scene.bb_min, app_scene.bb_max, fov,
+                           TRAIN_W / TRAIN_H,
+                           rot_y_deg=360.0 * i / TRAIN_VIEWS, device=dev)
+              for i in range(TRAIN_VIEWS)]
+    with torch.inference_mode():
+        tgt_1m = [pipeline.render(model_1m, cam_1m(a), cfg_1m).image
+                  for a in (10.0, 20.0, 30.0)]
+        tgt_t = [pipeline.render(app_scene.model, c, cfg_tapp).image
+                 for c in cams_t]
+    for label, model, cfg, tc, cams, tgts, kernels in (
+            ("1M", model_1m, cfg_train_1m, tc_1m, [cam0] * 3,
+             [t.clone() for t in tgt_1m],
+             ("coverage_masks", "stream_expand", "rasterize_strict_aux",
+              "rasterize_bwd")),
+            ("app 640x360", init_app, cfg_tapp, trainer.TrainConfig(
+                scene_extent=extent), cams_t, [t.clone() for t in tgt_t],
+             ("stream_expand", "rasterize_strict_aux", "rasterize_bwd"))):
+        facts, launches[f"train step {label}"] = step_check(
+            label, model, cfg, tc, cams, tgts, timer)
+        need_exact(f"train step {label} capture",
+                   launches[f"train step {label}"], kernels, captured)
+        say("train_step_engine", cell=label, **facts,
+            launches=launches[f"train step {label}"])
+    del tgt_1m, tgt_t
+
     # -- 11. --device points on the card --------------------------------
     pts_png = os.path.join(tmp, "points.png")
     pts_frames = 3
@@ -1491,6 +1914,9 @@ def main() -> int:
     need_exact("ui app", launches["ui"],
                ("stream_expand", "rasterize_relaxed"), captured)
     say("ui", **ui_facts, launches=launches["ui"])
+
+    # -- 13. posed-image datasets ---------------------------------------
+    say("dataset", **dataset_phase(tmp, app_scene, dev, launches))
 
     for name, r in results.items():
         r["launches"] = sum(path.get(name, 0) for path in launches.values())

@@ -1,6 +1,7 @@
 """PLY and XYZ point-cloud reading and PLY writing with numpy alone: the
 port's own copy of the reference's parser (gaussian_splat_ipu_tpu/io/
-ply.py), without its native fast path and sharded row ranges.
+ply.py), without its native fast path and sharded row ranges. `.splat`
+files are read by io/splat.py.
 
 Binary (little and big endian) and ascii PLY parse into one structured
 numpy array per element; elements with list properties (a mesh's faces)
@@ -232,11 +233,14 @@ def read_xyz(path: str) -> np.ndarray:
 
 
 def load_points(path: str):
-    """The field dict of a .ply or .xyz file, by extension."""
+    """The field dict of a .ply, .xyz or .splat file, by extension."""
     ext = path.rsplit(".", 1)[-1].lower()
     if ext == "xyz":
         return {"means": read_xyz(path)}
     if ext == "ply":
         return gaussian_fields_from_ply(read_ply(path))
+    if ext == "splat":
+        from gaussian_splat_ipu_tpu_torch.io import splat as splat_io
+        return splat_io.read_splat(path)
     raise ValueError(f"unsupported scene file extension: .{ext} (the port "
-                     "reads .ply and .xyz)")
+                     "reads .ply, .xyz and .splat)")

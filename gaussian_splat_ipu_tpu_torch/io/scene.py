@@ -67,11 +67,7 @@ def assemble_scene(fields, center: bool = True, flip_z: bool = True,
 def load_scene(path: str, center: bool = True, flip_z: bool = True,
                sh_degree: int = 0, default_log_scale: float = -4.0, *,
                device) -> Scene:
-    """Load a .ply or .xyz scene and assemble it on `device`."""
-    ext = path.rsplit(".", 1)[-1].lower()
-    if ext not in ("ply", "xyz"):
-        raise ValueError(f"unsupported scene file extension: .{ext} (the "
-                         "port reads .ply and .xyz)")
+    """Load a .ply, .xyz or .splat scene and assemble it on `device`."""
     return assemble_scene(ply_io.load_points(path), center, flip_z,
                           sh_degree, default_log_scale, device=device)
 

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gaussian_splat_ipu_tpu_torch.ops.sh import SH_C0
+
 # Field order = parameters() order = the reference pytree's leaf order.
 FIELDS = ("means", "log_scales", "quats", "opacities", "sh")
 
@@ -117,6 +119,34 @@ class GaussianModel(nn.Module):
                               device)
 
     @classmethod
+    def from_points(cls, xyz: np.ndarray, rgb: np.ndarray,
+                    sh_degree: int = 0, opacity: float = 0.1, knn: int = 3,
+                    *, device) -> "GaussianModel":
+        """The standard 3DGS initialisation from an SfM point cloud
+        (reference models/gaussians.py:121-156): one isotropic gaussian per
+        point, its scale the mean distance to the `knn` nearest neighbours
+        (at least 1e-7), its colour the SH dc band, its opacity a uniform
+        post-sigmoid `opacity`."""
+        xyz = np.asarray(xyz, np.float32)
+        rgb = np.asarray(rgb, np.float32)
+        n = xyz.shape[0]
+        if n == 0:
+            raise ValueError("from_points: empty point cloud")
+        means = torch.tensor(xyz, device=device)
+        dist = torch.clamp_min(mean_knn_distance(means, k=knn), 1e-7)
+        sh = np.zeros((n, (sh_degree + 1) ** 2, 3), np.float32)
+        sh[:, 0] = (rgb - 0.5) / SH_C0      # inverts colour_from_dc
+        p = float(np.clip(opacity, 1e-4, 1.0 - 1e-4))
+        return cls(
+            means=means,
+            log_scales=torch.log(dist)[:, None].repeat(1, 3),
+            quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]],
+                               device=device).repeat(n, 1),
+            opacities=torch.full((n,), float(np.log(p / (1.0 - p))),
+                                 dtype=torch.float32, device=device),
+            sh=torch.tensor(sh, device=device))
+
+    @classmethod
     def random(cls, n: int, *, generator: torch.Generator, device,
                sh_degree: int = 0, extent: float = 1.0) -> "GaussianModel":
         """Random synthetic scene with the reference's distributions
@@ -140,6 +170,27 @@ class GaussianModel(nn.Module):
         """The five parameter arrays as numpy, keyed as from_numpy takes
         them."""
         return {k: getattr(self, k).detach().cpu().numpy() for k in FIELDS}
+
+
+def mean_knn_distance(xyz: torch.Tensor, k: int = 3,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Mean distance to the k nearest neighbours of every point, (N,) f32
+    (reference models/gaussians.py:209-241). Exact and chunked: each row
+    chunk's (chunk, N) squared distances are |a|^2 + |b|^2 - 2 a.b, one
+    matmul, and the k + 1 smallest (self included, at about 0) are kept."""
+    n = xyz.shape[0]
+    if n == 1:
+        return torch.zeros((1,), dtype=torch.float32, device=xyz.device)
+    k_eff = min(k, max(n - 1, 1))
+    sq = torch.sum(xyz * xyz, dim=-1)
+    out = []
+    for lo in range(0, n, chunk):
+        r = xyz[lo:lo + chunk]
+        d2 = sq[lo:lo + chunk, None] + sq[None, :] - 2.0 * (r @ xyz.T)
+        neg, _ = torch.topk(-d2, k_eff + 1, dim=1)
+        d2k = torch.clamp_min(-neg[:, 1:], 0.0)          # drop self
+        out.append(torch.mean(torch.sqrt(d2k), dim=-1))
+    return torch.cat(out)
 
 
 def center_and_flip(points: np.ndarray) -> np.ndarray:

@@ -10,9 +10,9 @@ its arguments into the captured call's input tensors and replays the
 graph. One replay issues the whole frame (hundreds of kernels) with one
 host call.
 
-Static inputs. The tensors of `example_args` (tensors, and the parameters
-and buffers of nn.Module arguments such as GaussianModel) ARE the graph's
-inputs: the engine owns them after `register`. `run` copies each tensor
+Static inputs. The tensors of `example_args` (tensors, the parameters and
+buffers of nn.Module arguments such as GaussianModel, and a Camera's view,
+projection and environment rotation) ARE the graph's inputs: the engine owns them after `register`. `run` copies each tensor
 argument into its input unless the argument is that very tensor, so a
 model passed again as registered (about 236 MB at 1M gaussians) costs
 nothing per frame, while a camera made anew on the host each frame is
@@ -27,6 +27,15 @@ Outputs. A replay writes the same output memory every time, so `run`
 hands back clones of the outputs, made on the stream right after the
 replay: a frame the caller still holds (frames in flight, a PNG dump, a UI
 push) survives the next replay.
+
+Train programs (`register(..., grad=True)`). A train step runs forward,
+backward and an optimizer update that writes the parameters and the
+optimizer state in place; the state is passed to `run` as the registered
+object, so nothing of it is copied, and the program returns only its loss.
+Its warm-ups and its capture run with autograd on (render programs run
+under `torch.inference_mode()`), and, since each warm-up is a real update,
+every input tensor is copied aside before the warm-ups and copied back in
+place after the capture: after `register` the state is as it was.
 
 On the CPU (`device="cpu"`) a program is stored as it is and `run` calls it
 eagerly; nothing is captured. On CUDA there is no such fallback: a
@@ -46,6 +55,7 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
 from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
 
@@ -56,8 +66,8 @@ LOG_LEVELS = {"trace": logging.DEBUG, "debug": logging.DEBUG,
               "info": logging.INFO, "warn": logging.WARNING,
               "err": logging.ERROR, "off": logging.CRITICAL}
 # Calls of a program on a side stream before its capture: they build the
-# kernels' lazy state (cuBLAS handles, cached constants such as the row
-# buckets' bounds tensor) outside the graph.
+# kernels' lazy state (cuBLAS and cuDNN handles, autograd's, cached
+# constants such as the row buckets' bounds tensor) outside the graph.
 WARMUP_CALLS = 3
 
 
@@ -91,6 +101,8 @@ def _tensors_of(leaf) -> List[torch.Tensor]:
         return [leaf]
     if isinstance(leaf, nn.Module):
         return list(leaf.parameters()) + list(leaf.buffers())
+    if isinstance(leaf, Camera):
+        return [leaf.view, leaf.proj, leaf.env_rot]
     return []
 
 
@@ -104,6 +116,7 @@ class CompiledProgram:
     in_spec: Any = None
     out_leaves: tuple = ()          # flattened captured outputs
     out_spec: Any = None
+    grad: bool = False              # runs with autograd (a train step)
 
 
 class RenderEngine:
@@ -121,12 +134,14 @@ class RenderEngine:
         self.device = select_device(config.device)
         log.info("engine device: %s", self.device)
 
-    def register(self, name: str, fn: Callable,
-                 example_args: tuple) -> CompiledProgram:
+    def register(self, name: str, fn: Callable, example_args: tuple,
+                 grad: bool = False) -> CompiledProgram:
         """Capture `fn(*example_args)` into a CUDA graph (on the CPU: store
         `fn`). Every tensor in example_args must lie on the engine's
         device; those tensors become the graph's static inputs. Raises if
-        the call cannot be captured. A rate-limited heartbeat logs the
+        the call cannot be captured. grad=True: a train program (module
+        docstring), warmed up and captured with autograd on, its inputs
+        restored after the capture. A rate-limited heartbeat logs the
         elapsed time of long registrations (the reference's compile
         progress filter, engine.py:104-126)."""
         leaves, spec = pytree.tree_flatten(tuple(example_args))
@@ -137,7 +152,8 @@ class RenderEngine:
                                      f"is on {t.device}, the engine on "
                                      f"{self.device}")
         prog = CompiledProgram(name=name, fn=fn, compile_seconds=0.0,
-                               in_leaves=tuple(leaves), in_spec=spec)
+                               in_leaves=tuple(leaves), in_spec=spec,
+                               grad=grad)
         if self.device.type == "cuda":
             t0 = time.perf_counter()
             done = threading.Event()
@@ -152,7 +168,8 @@ class RenderEngine:
             ticker = threading.Thread(target=heartbeat, daemon=True)
             ticker.start()
             try:
-                prog.graph, out = self._capture(name, fn, example_args)
+                prog.graph, out = self._capture(name, fn, example_args,
+                                                grad)
             finally:
                 done.set()
                 ticker.join()
@@ -164,25 +181,34 @@ class RenderEngine:
         self.programs[name] = prog
         return prog
 
-    def _capture(self, name: str, fn: Callable, args: tuple):
+    def _capture(self, name: str, fn: Callable, args: tuple, grad: bool):
         """Build the kernels, run fn WARMUP_CALLS times on a side stream,
-        then capture one call. Returns (graph, captured outputs)."""
+        then capture one call; with `grad`, under autograd, and the input
+        tensors copied back in place to what they held before the
+        warm-ups. Returns (graph, captured outputs)."""
         cuda_lib.library()
         dev = self.device
+        inputs = [t for leaf in pytree.tree_leaves(tuple(args))
+                  for t in _tensors_of(leaf)]
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in inputs] if grad else []
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), torch.inference_mode():
+            with torch.cuda.stream(side), torch.inference_mode(not grad):
                 for _ in range(WARMUP_CALLS):
                     fn(*args)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph), torch.inference_mode():
+                with torch.cuda.graph(graph), torch.inference_mode(not grad):
                     out = fn(*args)
             except Exception as e:
                 raise RuntimeError(f"program '{name}' could not be captured "
                                    f"into a CUDA graph: {e}") from e
+            with torch.no_grad():
+                for t, s in zip(inputs, saved):
+                    t.copy_(s)
         return graph, out
 
     def _load_inputs(self, prog: CompiledProgram, args: tuple) -> None:
@@ -221,10 +247,11 @@ class RenderEngine:
         if name not in self.programs:
             raise KeyError(f"Tried to run unregistered program: '{name}'")
         prog = self.programs[name]
-        with torch.inference_mode():
+        with torch.inference_mode(not prog.grad):
             if prog.graph is None:
                 return prog.fn(*args)
-            self._load_inputs(prog, args)
+            with torch.no_grad():
+                self._load_inputs(prog, args)
             prog.graph.replay()
             return pytree.tree_unflatten(
                 [t.clone() if isinstance(t, torch.Tensor) else t

@@ -20,6 +20,16 @@ cannot scale half of one tensor (the SH bands >= 1) after the Adam step.
 Every scalar of the update (counts, bias corrections, the scheduled rate)
 stays on the device, so a step never waits for the device.
 `train_step` updates the state's tensors in place and returns it.
+
+The compiled step (the reference jits it, trainer.py:138/160): on CUDA
+`register_step` captures one train_step as a CUDA graph in a
+runtime/engine.RenderEngine program (fn(state, camera, target) ->
+loss), and a step is one replay with the camera and target
+copied in; `fit` runs its steps so. Register after a resume:
+checkpoint.restore_checkpoint makes new tensors, and a graph updates the
+ones it captured. With a card a replayed step is held to the eager step
+within kernel D's row-scaled bound, not bit for bit: D's shared group
+ranges and the pair-table VJP's `index_add_` add with atomics.
 """
 
 from __future__ import annotations
@@ -34,8 +44,10 @@ from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
                                                           GaussianModel)
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render_image
+from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
 from gaussian_splat_ipu_tpu_torch.train import losses
-from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
+                                                      RuntimeConfig)
 
 B1, B2 = 0.9, 0.999
 # The optimizer's parameter groups in sorted label order: the order of
@@ -208,18 +220,42 @@ def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
     return state, loss.detach()
 
 
+STEP_PROGRAM = "train_step"
+
+
+def register_step(engine: RenderEngine, state: TrainState, camera: Camera,
+                  target: torch.Tensor, raster_cfg: RasterConfig,
+                  train_cfg: TrainConfig, name: str = STEP_PROGRAM):
+    """Register train_step on `engine` as a train program (grad=True),
+    fn(state, camera, target) -> the () loss: on CUDA captured, with
+    `state` as it was afterwards. The state is the registered object, so
+    `engine.run(name, state, camera, target)` updates it in place and
+    hands back only the loss, no copy of the parameters; the camera and
+    target are copies, the static inputs each run copies into."""
+    def step(state: TrainState, camera: Camera, target: torch.Tensor):
+        return train_step(state, camera, target, raster_cfg, train_cfg)[1]
+
+    example = (state, Camera(camera.view.clone(), camera.proj.clone(),
+                             camera.env_rot.clone()),
+               target.detach().clone())
+    return engine.register(name, step, example, grad=True)
+
+
 def fit(model: GaussianModel, cameras, targets, raster_cfg: RasterConfig,
         train_cfg: TrainConfig = TrainConfig(), num_steps: int = 100,
         log_every: Optional[int] = None):
     """Simple single-device fit loop over (camera, target) views, cycled
-    in order. Returns (trained model, list of losses: every step, or
-    steps 0, log_every, ... with log_every)."""
+    in order, each step a replay of the captured step on CUDA. Returns
+    (trained model, list of losses: every step, or steps 0, log_every,
+    ... with log_every)."""
     state = init_state(model.trainable(), train_cfg)
+    engine = RenderEngine(RuntimeConfig(device=str(state.params.device)))
+    register_step(engine, state, cameras[0], targets[0], raster_cfg,
+                  train_cfg)
     history = []
     for i in range(num_steps):
-        state, loss = train_step(state, cameras[i % len(cameras)],
-                                 targets[i % len(targets)], raster_cfg,
-                                 train_cfg)
+        loss = engine.run(STEP_PROGRAM, state, cameras[i % len(cameras)],
+                          targets[i % len(targets)])
         if not log_every or i % log_every == 0:
             history.append(loss)
     return state.params, [float(x) for x in history]

@@ -3,15 +3,16 @@
 
     python3 profile_frames.py [--iters 8]
 
-For seven cells of chip_smoke.py (the app frame: 37,941 seeded
+For nine cells of chip_smoke.py (the app frame: 37,941 seeded
 gaussians, 1280x720, relaxed; the 1M frame: 2^20 gaussians,
 tile_group=3, exact tiles, strict; each of the two replayed as a CUDA
 graph by the app's RenderEngine, with the camera copied in from the host
 each call; the 1M train step, L1, against the model's own angle-0
 render; the train app's step: its 640x360 initial model against the
-scene's render, L1 + 0.2 SSIM; the rowseg 1M frame: chip_smoke.py's
-rowseg_config, tile_group=2, exact tiles, strict) it runs 3 warm-up
-iterations, then
+scene's render, L1 + 0.2 SSIM; each of the two steps replayed as the
+train program of trainer.register_step, with the camera and the target
+copied in each call; the rowseg 1M frame: chip_smoke.py's rowseg_config,
+tile_group=2, exact tiles, strict) it runs 3 warm-up iterations, then
   - pipelined ms: host wall time per iteration of --iters enqueued back
     to back and synchronised once; enqueue ms: the host time to issue
     them;
@@ -202,13 +203,24 @@ def main() -> int:
                         (model, *(t.to(dev) for t in host[1:])))
         replays[name] = (lambda name=name, host=host:
                          engine.run(name, *host))
+    # The two train steps replayed as captured train programs.
+    for name, state, cam, target, cfg, tc in (
+            ("train 1m", state_1m, cam_1m, target_1m, cfg_1m, tc_1m),
+            ("train app", state_t, cam_t, target_t, cfg_t, tc_t)):
+        trainer.register_step(engine, state, cam, target, cfg, tc,
+                              name=name)
+        replays[name] = (lambda name=name, state=state, cam=cam,
+                         target=target: engine.run(name, state, cam, target))
 
     for cell, fn in (("app 37.9k relaxed frame", app_frame),
                      ("app 37.9k relaxed frame, replayed", replays["app"]),
                      ("1M frame", frame_1m),
                      ("1M frame, replayed", replays["1m"]),
                      ("train 1M step", step_1m),
+                     ("train 1M step, replayed", replays["train 1m"]),
                      ("train app 640x360 step", step_app),
+                     ("train app 640x360 step, replayed",
+                      replays["train app"]),
                      (f"rowseg 1M frame (R={rs_info['R']})", frame_rowseg)):
         out, port = profile(fn, args.iters)
         smoke.say("profile", cell=cell, **out)

@@ -182,4 +182,4 @@ def test_load_scene_matches_jax(ply):
         np.testing.assert_array_equal(v, np.asarray(getattr(want.model, k)),
                                       err_msg=k)
     with pytest.raises(ValueError, match="unsupported"):
-        load_scene(ply[:-4] + ".splat", device="cpu")
+        load_scene(ply[:-4] + ".obj", device="cpu")

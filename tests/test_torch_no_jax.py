@@ -1,8 +1,9 @@
 """The port must run where JAX and the JAX package are absent: a
 subprocess blocks every `jax` import and every import of
 `gaussian_splat_ipu_tpu` (not of the port), imports the whole port,
-renders a tiny frame, bins it into row buckets and takes one train step on
-the CPU."""
+renders a tiny frame, bins it into row buckets, takes one train step on
+the CPU and one through the engine's step program, writes and reads a
+.splat and a COLMAP capture, and seeds a model from points."""
 
 import os
 import subprocess
@@ -63,6 +64,31 @@ CHILD = textwrap.dedent("""
     assert bool(torch.isfinite(loss)) and float(loss) > 0.0
     assert int(state.step) == 1
     assert not torch.equal(state.params.means, model.means)
+
+    import os, tempfile
+    from gaussian_splat_ipu_tpu_torch.io import colmap, splat
+    from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    from gaussian_splat_ipu_tpu_torch.utils.image import write_png
+    eng = RenderEngine(RuntimeConfig(device="cpu"))
+    trainer.register_step(eng, state, cam, out.image * 0.5, cfg, tc)
+    assert float(eng.run(trainer.STEP_PROGRAM, state, cam,
+                         out.image * 0.5)) > 0.0 and int(state.step) == 2
+    d = tempfile.mkdtemp()
+    splat.write_splat(os.path.join(d, "m.splat"), model)
+    assert splat.read_splat(os.path.join(d, "m.splat"))["means"].shape == (
+        200, 3)
+    os.makedirs(os.path.join(d, "images"))
+    write_png(os.path.join(d, "images", "a.png"), np.zeros((32, 48, 3)))
+    colmap.write_binary_model(
+        os.path.join(d, "sparse", "0"),
+        {1: ("PINHOLE", 48, 32, [40.0, 40.0, 24.0, 16.0])},
+        {1: ("a.png", np.array([1.0, 0, 0, 0]), np.array([0, 0, 3.0]), 1,
+             [])}, {1: ((0.0, 0.0, 0.0), (9, 9, 9), [])})
+    fs, xyz, rgb = colmap.load_colmap(d, device="cpu")
+    assert len(fs) == 1 and xyz.shape == (1, 3)
+    GaussianModel.from_points(np.random.rand(5, 3), np.random.rand(5, 3),
+                              device="cpu")
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
     assert not any(k == REF or k.startswith(REF + ".") for k in sys.modules)
     print("OK")
