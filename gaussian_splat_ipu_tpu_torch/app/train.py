@@ -1,10 +1,11 @@
 """Training application: fit gaussian parameters to target views (torch
-port of the single-device path of gaussian_splat_ipu_tpu/app/train.py).
+port of the single-device paths of gaussian_splat_ipu_tpu/app/train.py).
 
     python -m gaussian_splat_ipu_tpu_torch.app.train --input scene.ply \\
         --steps 200 --views 8 [--mode distill|self] [--device cuda]
     python -m gaussian_splat_ipu_tpu_torch.app.train --dataset DIR \\
-        --holdout-every 8 --steps 30000 --export-ply out.ply
+        --holdout-every 8 --steps 30000 --densify --depth-loss 0.1 \\
+        --sh-step-every 1000 --export-ply out.ply
 
 Targets:
   --input    render the target views from a loaded scene over an orbit;
@@ -20,22 +21,51 @@ Targets:
              cameras' extent. --holdout-every K keeps every K-th view out
              of training and reports its mean PSNR (eval_psnr=).
 
-The targets stay on the device. Each step is one replay of the train step
-captured as a CUDA graph (train/trainer.py::register_step, a
-runtime/engine.RenderEngine program) with the view's camera and target
-copied in; on --device cpu the same program runs eagerly. There is no
-whole-epoch program as the reference's lax.scan: a replay costs one host
-call, so an epoch is one replay per view. The final, holdout and probe
-renders replay one render program (app/main.py::splat_program) with the
-camera copied in. The run logs the loss and ends with the reference's
-`final_loss=... psnr=...` line.
+Training extras, with the reference's defaults and composition rules:
+  --densify          density control in a fixed slot buffer
+                     (train/densify.py): --capacity (0 = twice the initial
+                     count), --densify-every (rounded to whole epochs),
+                     --densify-from / --densify-until, the gradient
+                     threshold scaled by the measured L1 / SSIM mix when
+                     --ssim-weight > 0, --auto-grow (double the buffer
+                     above 90% alive). Steps run in whole epochs; after each
+                     event every training view's pair demand is probed, and
+                     densification stops above 0.8x --pair-capacity.
+  --pose-opt LR, --exposure-opt LR
+                     per-view pose deltas and exposure maps optimised with
+                     the scene (train/aux_opt.py); ignored, with a warning,
+                     under --densify.
+  --depth-loss W     sparse SfM depth supervision (train/depth.py); COLMAP
+                     captures only, else ignored with a warning; composes
+                     with --densify and with the aux modules.
+  --sh-step-every N  progressive SH: one more band every N steps; each bump
+                     registers the step program again. The final, holdout
+                     and probe renders use every band.
+  --max-device-views N
+                     the targets stay in (pinned) host memory; each epoch
+                     uploads them N views at a time as one (N, H, W, C)
+                     device tensor, the last short piece wrapping in the
+                     epoch's first views, as the reference's.
+
+Each step is one replay of a train program captured as a CUDA graph
+(runtime/engine.RenderEngine; trainer, densify or aux_opt register_step)
+with the view's camera, target and view index copied in; on --device cpu
+the same program runs eagerly. The density event and the opacity reset
+run eagerly between replays, in place on the captured tensors. Whole
+epochs step as the reference's epoch programs do (the view order a fresh
+permutation each epoch under --shuffle), then the last
+partial epoch one step at a time. The final, holdout and probe renders
+replay one render program (app/main.py::splat_program). The run logs the
+loss and ends with the reference's `final_loss=... psnr=...` line.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
@@ -44,55 +74,35 @@ import torch
 from gaussian_splat_ipu_tpu_torch.app.eval import (flatten_rgba,
                                                    load_frames, select_split)
 from gaussian_splat_ipu_tpu_torch.app.main import splat_program
+from gaussian_splat_ipu_tpu_torch.io import colmap as colmap_lib
 from gaussian_splat_ipu_tpu_torch.io import splat as splat_io
 from gaussian_splat_ipu_tpu_torch.io.scene import load_scene
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
-from gaussian_splat_ipu_tpu_torch.train import checkpoint, losses, trainer
+from gaussian_splat_ipu_tpu_torch.train import (appearance, aux_opt,
+                                                checkpoint, densify, depth,
+                                                losses, pose_opt, trainer)
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig,
                                                       check_supported)
 
 log = logging.getLogger("gsplat")
 
-_LOG_EVERY_EPOCHS = 10
 _STEPS_IN_FLIGHT = 2     # steps queued on the device before one retires
 _RENDER = "render"       # the engine's render program
+_ORDER_SEED = 0xC0FFEE   # the reference's visit-order generator
+_PROBE_SHARE = 0.8       # stop densifying above this share of the capacity
+_GROW_SHARE = 0.9        # --auto-grow above this share of the slots alive
 
 # Flags of the reference CLI that this port does not carry yet: (dest,
 # the value that means "off", what it is, the ROADMAP.md queue-1 item).
 _UNPORTED = (
-    ("densify", False, "--densify (adaptive density control)",
-     "Training extras: train/densify.py"),
-    ("capacity", 0, "--capacity (a --densify option)",
-     "Training extras: train/densify.py"),
-    ("densify_every", 100, "--densify-every (a --densify option)",
-     "Training extras: train/densify.py"),
-    ("densify_grad_threshold", 2e-4,
-     "--densify-grad-threshold (a --densify option)",
-     "Training extras: train/densify.py"),
-    ("densify_from", 500, "--densify-from (a --densify option)",
-     "Training extras: train/densify.py"),
-    ("densify_until", 15_000, "--densify-until (a --densify option)",
-     "Training extras: train/densify.py"),
-    ("auto_grow", False, "--auto-grow (a --densify option)",
-     "Training extras: train/densify.py"),
     ("distributed", False, "--distributed (sharded training)",
      "Distributed path"),
     ("view_batch", 0, "--view-batch (view-parallel training)",
      "Distributed path"),
-    ("pose_opt", 0.0, "--pose-opt (camera pose refinement)",
-     "Training extras: train/pose_opt.py, train/aux_opt.py"),
-    ("exposure_opt", 0.0, "--exposure-opt (exposure compensation)",
-     "Training extras: train/appearance.py, train/aux_opt.py"),
-    ("depth_loss", 0.0, "--depth-loss (SfM depth supervision)",
-     "Training extras: train/depth.py"),
-    ("sh_step_every", 0, "--sh-step-every (progressive SH schedule)",
-     "Training extras: the progressive SH schedule"),
-    ("max_device_views", 0, "--max-device-views (host-streamed targets)",
-     "Training extras: target streaming"),
 )
 
 
@@ -134,13 +144,24 @@ def parse_args(argv=None):
                         "source degree, 3 for SfM points; new bands start "
                         "at zero)")
     p.add_argument("--sh-step-every", type=int, default=0,
-                   help="not ported yet")
+                   help="progressive SH schedule: one more band every N "
+                        "steps (0 = all bands from the start); each bump "
+                        "registers the step program again")
     p.add_argument("--pose-opt", type=float, default=0.0, metavar="LR",
-                   help="not ported yet")
+                   help="refine per-view camera poses (SE(3) tangent deltas "
+                        "at this Adam LR; 5e-4 is a sensible start); not "
+                        "with --densify; composes with --exposure-opt and "
+                        "--depth-loss")
     p.add_argument("--exposure-opt", type=float, default=0.0, metavar="LR",
-                   help="not ported yet")
+                   help="per-view affine exposure compensation of the "
+                        "render before the loss (Adam LR; 1e-2 is a "
+                        "sensible start); not with --densify; composes "
+                        "with --pose-opt and --depth-loss")
     p.add_argument("--depth-loss", type=float, default=0.0, metavar="W",
-                   help="not ported yet")
+                   help="supervise the rendered depth at the COLMAP SfM "
+                        "track observations with this weight (masked "
+                        "relative L1; needs a COLMAP --dataset); composes "
+                        "with --densify and --pose-opt / --exposure-opt")
     p.add_argument("--shuffle", action="store_true",
                    help="visit the views in a fresh random order each "
                         "epoch")
@@ -148,7 +169,10 @@ def parse_args(argv=None):
                    default="black",
                    help="render / composite background")
     p.add_argument("--max-device-views", type=int, default=0,
-                   help="not ported yet")
+                   help="stream the targets from host memory this many "
+                        "views at a time (0 = every target on the device); "
+                        "view counts it does not divide wrap a few "
+                        "duplicates into an epoch's last piece")
     p.add_argument("--pair-capacity", type=int, default=1 << 18)
     p.add_argument("--exact-tiles", action="store_true",
                    help="exact tile-ellipse coverage test (fewer pairs, "
@@ -162,7 +186,9 @@ def parse_args(argv=None):
                    help="energy-conserving lowpass (Mip-Splatting)")
     p.add_argument("--checkpoint", default="",
                    help="write the final params + optimizer state here "
-                        "(.npz, the JAX package's layout)")
+                        "(.npz, the JAX package's layout; with --densify "
+                        "the density-control state, with --pose-opt / "
+                        "--exposure-opt their states)")
     p.add_argument("--resume", default="",
                    help="restore a --checkpoint .npz (same CLI shape flags) "
                         "and continue training from it")
@@ -175,17 +201,19 @@ def parse_args(argv=None):
                    help="not ported yet")
     p.add_argument("--view-batch", type=int, default=0,
                    help="not ported yet")
-    p.add_argument("--densify", action="store_true", help="not ported yet")
-    p.add_argument("--capacity", type=int, default=0, help="not ported yet")
-    p.add_argument("--densify-every", type=int, default=100,
-                   help="not ported yet")
-    p.add_argument("--densify-grad-threshold", type=float, default=2e-4,
-                   help="not ported yet")
-    p.add_argument("--densify-from", type=int, default=500,
-                   help="not ported yet")
-    p.add_argument("--densify-until", type=int, default=15_000,
-                   help="not ported yet")
-    p.add_argument("--auto-grow", action="store_true", help="not ported yet")
+    p.add_argument("--densify", action="store_true",
+                   help="adaptive density control (split / clone / prune)")
+    p.add_argument("--capacity", type=int, default=0,
+                   help="--densify: slot-buffer capacity (0 = twice the "
+                        "initial count)")
+    p.add_argument("--densify-every", type=int, default=100)
+    p.add_argument("--densify-grad-threshold", type=float, default=2e-4)
+    p.add_argument("--densify-from", type=int, default=500)
+    p.add_argument("--densify-until", type=int, default=15_000)
+    p.add_argument("--auto-grow", action="store_true",
+                   help="--densify: double the slot buffer when 90%% full "
+                        "(the programs are registered again) instead of "
+                        "dropping the lowest-priority births")
     args = p.parse_args(argv)
     unported = [f"{what} (ROADMAP.md queue 1, {item})"
                 for dest, off, what, item in _UNPORTED
@@ -209,11 +237,15 @@ def run(argv=None) -> dict:
     """The body of main. Returns the run's statistics: per-step losses,
     step times (CUDA-event ms on the card, host ms on the CPU) and
     pipelined ms (host ms between consecutive step retirements, up to
-    _STEPS_IN_FLIGHT queued), the capture seconds of the step program,
-    the overflow and truncation of the target renders (--input) or of the
-    initial model's render of each training view (--dataset) and of the
-    final render, the holdout PSNR and overflow, the final loss, PSNR
-    and step."""
+    _STEPS_IN_FLIGHT queued); every program registration (program, step,
+    the SH degree it renders, -1 for every band, slots, capture seconds,
+    the allocator's reserved bytes after it); with --densify each event
+    (step, alive count, pair demand and overflow of the probe, event ms)
+    and the final alive count;
+    the learned pose deltas and exposure maps; the overflow and truncation
+    of the target renders (--input) or of the initial model's render of
+    each training view (--dataset) and of the final render, the holdout
+    PSNR and overflow, the final loss, PSNR and step."""
     args = parse_args(argv)
     engine_lib.setup_logging(args.log_level)
     engine = engine_lib.RenderEngine(RuntimeConfig(device=args.device))
@@ -227,10 +259,22 @@ def run(argv=None) -> dict:
     holdout_cams, holdout_targets = [], []
     init = "loaded scene"
     target_renders = None
+    depth_obs = None
 
     if args.dataset:
-        fs, sfm_xyz, sfm_rgb = load_frames(args.dataset, args.downscale,
-                                           device=device)
+        colmap_dir = (os.path.isdir(args.dataset)
+                      and colmap_lib.is_colmap_dir(args.dataset))
+        if args.depth_loss > 0 and not colmap_dir:
+            log.warning("--depth-loss needs a COLMAP dataset (SfM track "
+                        "observations); ignoring")
+            args.depth_loss = 0.0
+        if args.depth_loss > 0:
+            fs, sfm_xyz, sfm_rgb, depth_obs = colmap_lib.load_colmap(
+                args.dataset, downscale=args.downscale, with_depth=True,
+                device=device)
+        else:
+            fs, sfm_xyz, sfm_rgb = load_frames(args.dataset, args.downscale,
+                                               device=device)
         if args.holdout_every > 0:
             hold = select_split(len(fs), "holdout", args.holdout_every)
             train_idx = select_split(len(fs), "train", args.holdout_every)
@@ -242,8 +286,7 @@ def run(argv=None) -> dict:
         else:
             train_idx = list(range(len(fs)))
         cameras = [fs.cameras[i] for i in train_idx]
-        targets = [torch.tensor(flatten_rgba(fs.images[i], bg),
-                                device=device) for i in train_idx]
+        host_targets = [flatten_rgba(fs.images[i], bg) for i in train_idx]
         args.views = len(cameras)
         args.width, args.height = fs.width, fs.height
         origins = np.stack([c.cam_origin.cpu().numpy() for c in cameras])
@@ -265,7 +308,11 @@ def run(argv=None) -> dict:
             init = f"{model.num_gaussians} random gaussians"
         log.info("dataset %s: %d views at %dx%d, camera extent %.2f",
                  args.dataset, len(cameras), fs.width, fs.height, extent)
+        del fs
     else:
+        if args.depth_loss > 0:
+            log.warning("--depth-loss needs a COLMAP --dataset; ignoring")
+            args.depth_loss = 0.0
         scene = load_scene(args.input, device=device)
         extent = float(np.linalg.norm(scene.bb_max - scene.bb_min) * 0.5)
         fov = float(np.radians(40.0))
@@ -294,41 +341,183 @@ def run(argv=None) -> dict:
         with torch.no_grad():
             target_renders = [render(scene.model, cam, cfg)
                               for cam in cameras]
-        targets = [out.image for out in target_renders]
+        host_targets = None
+
+    # The targets: every view on the device, or with --max-device-views a
+    # host store (pinned on the card) uploaded one piece at a time.
+    chunk_views = (args.max_device_views
+                   if 0 < args.max_device_views < args.views else 0)
+    if chunk_views:
+        store = (torch.from_numpy(np.stack(host_targets)) if host_targets
+                 else torch.stack([o.image for o in target_renders]).cpu())
+        if on_cuda:
+            store = store.pin_memory()
+        targets = None
+        log.info("target streaming: %d views on the device per piece (%d "
+                 "in all, %.1f MB host store)", chunk_views, args.views,
+                 store.numel() * store.element_size() / 1e6)
+    elif host_targets is not None:
+        targets = [torch.tensor(t, device=device) for t in host_targets]
+    else:
+        targets = [o.image for o in target_renders]
+    del host_targets
+
+    def target_of(k):
+        if targets is not None:
+            return targets[k]
+        return store[k].to(device, non_blocking=True)
+
+    target0 = target_of(0)
+    depth_pack = None
+    if args.depth_loss > 0 and depth_obs is not None:
+        depth_pack = depth.pack_observations(
+            [depth_obs[i] for i in train_idx], device=device)
+        log.info("depth supervision: %d SfM observations over %d views "
+                 "(packed K=%d)", sum(depth_obs[i].shape[0]
+                                      for i in train_idx),
+                 len(train_idx), depth_pack[0].shape[1])
+    depth_weight = args.depth_loss if depth_pack is not None else 0.0
 
     if args.sh_degree >= 0 and args.sh_degree != model.sh_degree:
         model = model.with_sh_degree(args.sh_degree)
         log.info("SH degree -> %d (%d bands)", args.sh_degree,
                  model.sh.shape[1])
+    # Progressive SH: band 0 first, one more every --sh-step-every steps.
+    full_sh_degree = model.sh_degree
+    active_sh = 0 if args.sh_step_every > 0 else -1
     tc = trainer.TrainConfig(ssim_weight=args.ssim_weight,
                              scene_extent=extent)
-    state = trainer.init_state(model.trainable(), tc)
+
+    # --pose-opt / --exposure-opt compose with --depth-loss in one aux
+    # step; density control takes neither.
+    for flag in ("pose_opt", "exposure_opt"):
+        if getattr(args, flag) > 0 and args.densify:
+            log.warning("--%s needs the single-device non-densify path; "
+                        "ignoring", flag.replace("_", "-"))
+            setattr(args, flag, 0.0)
+    aux = None
+    if args.pose_opt > 0 or args.exposure_opt > 0:
+        aux = aux_opt.init_aux_state(args.views, args.pose_opt,
+                                     args.exposure_opt, device=device)
+        if args.pose_opt > 0:
+            log.info("pose refinement on: %d views, lr %g", args.views,
+                     args.pose_opt)
+        if args.exposure_opt > 0:
+            log.info("exposure compensation on: %d views, lr %g",
+                     args.views, args.exposure_opt)
+
+    dstate = dcfg = None
+    if args.densify:
+        n0 = model.num_gaussians
+        capacity = args.capacity or 2 * n0
+        gscale = 1.0
+        if args.ssim_weight > 0.0:
+            # The threshold is calibrated on L1: normalise it by the
+            # measured gradient scale of the mix, or densification
+            # over-grows.
+            gscale = densify.loss_mix_scale(model, cameras[0], target0, cfg,
+                                            args.ssim_weight)
+            log.info("densify threshold scaled x%.2f for ssim_weight %.2f",
+                     gscale, args.ssim_weight)
+        dcfg = densify.DensifyConfig(
+            grad_threshold=args.densify_grad_threshold * gscale,
+            # Events land on epoch boundaries.
+            densify_every=max(args.densify_every // args.views, 1)
+            * args.views,
+            densify_from_step=args.densify_from,
+            densify_until_step=args.densify_until, scene_extent=extent)
+        dstate = densify.init_state(n0, capacity, device=device)
+        state = trainer.init_state(
+            densify.pad_model(model, capacity).trainable(), tc)
+        log.info("density control on: %d init gaussians, capacity %d", n0,
+                 capacity)
+    else:
+        state = trainer.init_state(model.trainable(), tc)
     if args.resume:
-        state = checkpoint.restore_checkpoint(args.resume, state)
+        if args.densify:
+            state, dstate = checkpoint.restore_checkpoint(args.resume,
+                                                          (state, dstate))
+        elif aux is not None:
+            state, aux = checkpoint.restore_checkpoint(args.resume,
+                                                       (state, aux))
+        else:
+            state = checkpoint.restore_checkpoint(args.resume, state)
         log.info("resumed from %s at step %d", args.resume, int(state.step))
 
-    # The programs, registered after any resume: a graph updates the
-    # tensors it captured. The render program reads state.params as the
-    # steps leave them.
+    # The programs, registered after any resume (a graph updates the
+    # tensors it captured) and again whenever the state's tensors or the
+    # active SH degree change. The render program reads state.params as
+    # the steps leave them.
     cam0 = cameras[0]
-    engine.register(_RENDER, splat_program(cfg), (
-        state.params, cam0.view.clone(), cam0.proj.clone(),
-        cam0.env_rot.clone()))
+    obs_all, mask_all = (depth_pack if depth_pack is not None
+                         else aux_opt.dummy_depth_obs(args.views,
+                                                      device=device))
+    # Depth alone is the aux step with both modules off; it checkpoints
+    # the bare state, as the reference does.
+    step_aux = aux
+    if step_aux is None and depth_weight > 0 and not args.densify:
+        step_aux = aux_opt.AuxState(pose=None, exposure=None)
+    registrations = []
+    i = 0
+
+    def registered(prog, sh_degree):
+        registrations.append(dict(
+            program=prog.name, step=i, active_sh_degree=sh_degree,
+            slots=state.params.num_gaussians,
+            capture_s=prog.compile_seconds,
+            reserved_bytes=(torch.cuda.memory_reserved(device) if on_cuda
+                            else None)))
+        return prog
+
+    def register_render():
+        registered(engine.register(_RENDER, splat_program(cfg), (
+            state.params, cam0.view.clone(), cam0.proj.clone(),
+            cam0.env_rot.clone())), -1)
+
+    def register_step():
+        acfg = (cfg if active_sh < 0 else
+                dataclasses.replace(cfg, active_sh_degree=active_sh))
+        vi = torch.zeros((), dtype=torch.int64, device=device)
+        if args.densify:
+            prog = densify.register_step(
+                engine, state, dstate, cam0, target0, acfg, tc, depth_weight,
+                vi, obs_all, mask_all)
+        elif step_aux is not None:
+            prog = aux_opt.register_step(
+                engine, state, step_aux, vi, cam0, target0, obs_all,
+                mask_all, acfg, tc, args.pose_opt, args.exposure_opt,
+                depth_weight)
+        else:
+            prog = trainer.register_step(engine, state, cam0, target0, acfg,
+                                         tc)
+        return registered(prog, active_sh)
+
+    def step_args(k, target):
+        """The step program's arguments for view k."""
+        cam, vi = cameras[k], torch.tensor(k, dtype=torch.int64)
+        if args.densify:
+            stats = (state, dstate.grad_sum, dstate.vis_count)
+            if depth_weight > 0:
+                return (*stats, vi, cam, target, obs_all, mask_all)
+            return (*stats, cam, target)
+        if step_aux is not None:
+            return (state, step_aux, vi, cam, target, obs_all, mask_all)
+        return (state, cam, target)
+
+    register_render()
     if target_renders is None:
         # The pairs each training view bins at the start.
         target_renders = render_views(engine, state.params, cameras)
     target_overflow = [int(o.overflow) for o in target_renders]
     target_truncated = [int(o.truncated) for o in target_renders]
+    del target_renders
     if any(target_overflow) or any(target_truncated):
         log.warning("target renders dropped pairs: overflow %s, truncated "
                     "%s: raise --pair-capacity", target_overflow,
                     target_truncated)
-    step_prog = trainer.register_step(engine, state, cam0, targets[0], cfg,
-                                      tc)
+    step_prog = register_step()
     log.info("step program: %s", engine.manifest())
 
-    order_rng = np.random.default_rng(0xC0FFEE)
-    order = list(range(args.views))
     inflight = collections.deque()
     loss_t, marks, pipelined = [], [], []
     t_last = None
@@ -343,19 +532,14 @@ def run(argv=None) -> dict:
             pipelined.append((now - t_last) * 1e3)
         t_last = now
 
-    t0 = time.perf_counter()
-    for i in range(args.steps):
-        k = i % args.views
-        if k == 0 and args.shuffle:
-            order_rng.shuffle(order)
+    def run_step(k, target):
         if on_cuda:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         else:
             ev = time.perf_counter()
-        loss = engine.run(trainer.STEP_PROGRAM, state, cameras[order[k]],
-                          targets[order[k]])
+        loss = engine.run(step_prog.name, *step_args(k, target))
         if on_cuda:
             ev[1].record()
         else:
@@ -365,11 +549,110 @@ def run(argv=None) -> dict:
         inflight.append(ev)
         if len(inflight) >= _STEPS_IN_FLIGHT:
             retire()
-        done = i + 1
-        if (done % args.views == 0
-                and (done // args.views) % _LOG_EVERY_EPOCHS == 0) \
-                or done == args.steps:
-            log.info("step %d: loss %.5f", done, float(loss))
+
+    order_rng = np.random.default_rng(_ORDER_SEED)
+
+    def view_order():
+        """An epoch's visit order: a fresh permutation under --shuffle."""
+        return (order_rng.permutation(args.views) if args.shuffle
+                else np.arange(args.views))
+
+    def run_epoch():
+        """One epoch in pieces of chunk_views (the last wraps the epoch's
+        first views in), each piece's targets uploaded as one device
+        tensor; without streaming, one piece of every view."""
+        order = view_order()
+        n = chunk_views or args.views
+        chunk = None
+        for c0 in range(0, args.views, n):
+            sel = order[c0:c0 + n]
+            if len(sel) < n:
+                sel = np.concatenate([sel, order[:n - len(sel)]])
+            if chunk_views:
+                chunk = None        # the previous piece leaves first
+                chunk = torch.empty((n,) + tuple(store.shape[1:]),
+                                    dtype=store.dtype, device=device)
+                for j, k in enumerate(sel):
+                    chunk[j].copy_(store[int(k)], non_blocking=True)
+            for j, k in enumerate(sel):
+                run_step(int(k), chunk[j] if chunk_views else targets[k])
+
+    densify_open = True
+    events = []
+    tail_order = None
+    t0 = time.perf_counter()
+    while i < args.steps:
+        if (args.sh_step_every > 0 and active_sh < full_sh_degree
+                and i // args.sh_step_every > active_sh):
+            active_sh = min(full_sh_degree, i // args.sh_step_every)
+            step_prog = register_step()
+            log.info("SH schedule: active degree -> %d at step %d",
+                     active_sh, i)
+        if args.densify or args.steps - i >= args.views:
+            run_epoch()
+            i += args.views
+        else:
+            # The last partial epoch, one step at a time.
+            if i % args.views == 0:
+                tail_order = view_order()
+            k = int(tail_order[i % args.views])
+            run_step(k, target_of(k))
+            i += 1
+        if args.densify:
+            c = dcfg
+            if (densify_open
+                    and c.densify_from_step <= i <= c.densify_until_step
+                    and i % c.densify_every == 0):
+                ev_t = time.perf_counter()
+                if on_cuda:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                state, dstate = densify.densify_and_prune(state, dstate, c)
+                if on_cuda:
+                    ev[1].record()
+                    ev[1].synchronize()
+                    event_ms = ev[0].elapsed_time(ev[1])
+                else:
+                    event_ms = (time.perf_counter() - ev_t) * 1e3
+                # Guard the pair budget over every training view: dropped
+                # pairs corrupt gradients, so stop growing first.
+                probe = render_views(engine, state.params, cameras)
+                demand = max(int(o.count + o.overflow) for o in probe)
+                ovf = max(int(o.overflow) for o in probe)
+                del probe
+                if ovf > 0:
+                    log.warning("pair overflow (%d dropped): raise "
+                                "--pair-capacity", ovf)
+                if demand > int(_PROBE_SHARE * cfg.pair_capacity):
+                    densify_open = False
+                    log.info("pair demand %d near capacity %d: no further "
+                             "densification", demand, cfg.pair_capacity)
+                alive_now = int(torch.sum(dstate.alive))
+                slots = state.params.num_gaussians
+                events.append(dict(step=i, alive=alive_now, demand=demand,
+                                   overflow=ovf, event_ms=event_ms,
+                                   slots=slots))
+                if (args.auto_grow and densify_open
+                        and alive_now > int(_GROW_SHARE * slots)):
+                    state, dstate = densify.grow_capacity(state, dstate,
+                                                          2 * slots)
+                    register_render()
+                    step_prog = register_step()
+                    log.info("slot buffer grown to %d (programs registered "
+                             "again)", 2 * slots)
+                log.info("densify at step %d: %d gaussians alive (%d "
+                         "pairs)", i, alive_now, demand)
+            # Reset only while densification runs (pruning must harvest
+            # it) and never near the end: the model needs a few hundred
+            # steps to recover.
+            if (densify_open and c.reset_opacity_every
+                    and i % c.reset_opacity_every < args.views
+                    and i >= c.reset_opacity_every
+                    and i <= min(args.steps - 500, c.densify_until_step)):
+                densify.reset_opacity(state, dstate, c)
+        if (i // args.views) % 10 == 0 or i >= args.steps:
+            log.info("step %d: loss %.5f", i, float(loss_t[-1]))
     while inflight:
         retire()
     if on_cuda:
@@ -379,12 +662,26 @@ def run(argv=None) -> dict:
         step_ms = marks
     dt = time.perf_counter() - t0
     losses_h = [float(x) for x in loss_t]
-    if args.steps:
-        log.info("trained %d steps in %.1fs (%.2f it/s)", args.steps, dt,
-                 args.steps / dt)
+    if losses_h:
+        log.info("trained %d steps in %.1fs (%.2f it/s)", len(losses_h), dt,
+                 len(losses_h) / dt)
 
-    final = render_views(engine, state.params, [cam0])[0]
-    psnr = float(losses.psnr(final.image[..., :3], targets[0][..., :3]))
+    pose = aux.pose if aux is not None else None
+    expo = aux.exposure if aux is not None else None
+    if expo is not None:
+        dev_ = (expo.mats - appearance.identity_mats(
+            args.views, device=device)).abs()
+        log.info("exposure compensation: mean |dev| %.4g, max %.4g",
+                 float(dev_.mean()), float(dev_.max()))
+    cam_final = cam0
+    if pose is not None:
+        # PSNR of view 0 through its corrected pose.
+        cam_final = pose_opt.apply_delta(cam0, pose.deltas[0])
+        mags = torch.linalg.vector_norm(pose.deltas, dim=1)
+        log.info("pose refinement: mean |delta| %.4g, max %.4g",
+                 float(mags.mean()), float(mags.max()))
+    final = render_views(engine, state.params, [cam_final])[0]
+    psnr = float(losses.psnr(final.image[..., :3], target0[..., :3]))
     log.info("PSNR vs target view 0: %.2f dB", psnr)
     eval_psnr, holdout_overflow = None, []
     if holdout_cams:
@@ -395,24 +692,41 @@ def run(argv=None) -> dict:
             for o, t in zip(outs, holdout_targets)]))
         log.info("holdout eval: %.2f dB mean PSNR over %d unseen views",
                  eval_psnr, len(outs))
+    final_alive = None
+    scene_out = state.params
+    if args.densify:
+        final_alive = int(torch.sum(dstate.alive))
+        log.info("final gaussian count: %d (capacity %d)", final_alive,
+                 state.params.num_gaussians)
+        if args.export_ply or args.export_splat:
+            scene_out = densify.compact(state.params, dstate)
     if args.checkpoint:
-        checkpoint.save_checkpoint(args.checkpoint, state)
+        payload = ((state, dstate) if args.densify
+                   else (state, aux) if aux is not None else state)
+        checkpoint.save_checkpoint(args.checkpoint, payload)
         log.info("checkpoint -> %s", args.checkpoint)
     if args.export_ply:
-        checkpoint.export_ply(args.export_ply, state.params)
+        checkpoint.export_ply(args.export_ply, scene_out)
         log.info("scene -> %s", args.export_ply)
     if args.export_splat:
-        splat_io.write_splat(args.export_splat, state.params)
+        splat_io.write_splat(args.export_splat, scene_out)
         log.info("scene -> %s (.splat)", args.export_splat)
     final_loss = losses_h[-1] if losses_h else float("nan")
     tail = f" eval_psnr={eval_psnr:.2f}" if eval_psnr is not None else ""
     print(f"final_loss={final_loss:.6f} psnr={psnr:.2f}{tail}")
     return dict(losses=losses_h, step_ms=step_ms, pipelined_ms=pipelined,
                 capture_seconds=step_prog.compile_seconds,
+                registrations=registrations, events=events,
                 final_loss=final_loss, psnr=psnr, eval_psnr=eval_psnr,
                 step=int(state.step), init=init,
-                num_gaussians=state.params.num_gaussians, views=args.views,
-                holdout_views=len(holdout_cams),
+                num_gaussians=state.params.num_gaussians,
+                final_alive=final_alive, active_sh_degree=active_sh,
+                views=args.views, holdout_views=len(holdout_cams),
+                device_views=chunk_views or args.views,
+                pose_deltas=(pose.deltas.cpu().numpy() if pose is not None
+                             else None),
+                exposure_mats=(expo.mats.cpu().numpy() if expo is not None
+                               else None),
                 target_overflow=target_overflow,
                 target_truncated=target_truncated,
                 holdout_overflow=holdout_overflow,

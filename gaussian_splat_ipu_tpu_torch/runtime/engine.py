@@ -37,6 +37,19 @@ under `torch.inference_mode()`), and, since each warm-up is a real update,
 every input tensor is copied aside before the warm-ups and copied back in
 place after the capture: after `register` the state is as it was.
 
+Re-registration. Registering a name again replaces its program, as a
+recompile replaces an executable in the reference: the old graph is reset
+and its outputs dropped before the new capture, and the caching allocator
+releases the old graph's private memory pool (`torch.cuda.empty_cache`),
+so a train program re-captured at each SH bump or capacity doubling holds
+one pool, not one per capture. Warm-ups and captures run on one side
+stream per device, shared by every registration: cuBLAS keeps a workspace
+for each (handle, stream) it meets, for the life of the process, so a new
+stream per registration would leave workspaces behind at each one, and
+one first met inside a capture would be made in that graph's pool and
+keep the pool from ever being freed. On the shared stream the warm-ups
+make them once, outside any capture.
+
 On the CPU (`device="cpu"`) a program is stored as it is and `run` calls it
 eagerly; nothing is captured. On CUDA there is no such fallback: a
 function that cannot be captured makes `register` raise.
@@ -66,9 +79,13 @@ LOG_LEVELS = {"trace": logging.DEBUG, "debug": logging.DEBUG,
               "info": logging.INFO, "warn": logging.WARNING,
               "err": logging.ERROR, "off": logging.CRITICAL}
 # Calls of a program on a side stream before its capture: they build the
-# kernels' lazy state (cuBLAS and cuDNN handles, autograd's, cached
-# constants such as the row buckets' bounds tensor) outside the graph.
+# kernels' lazy state (cuBLAS and cuDNN handles and workspaces, autograd's,
+# cached constants such as the row buckets' bounds tensor) outside the
+# graph.
 WARMUP_CALLS = 3
+# The side stream of each device that warm-ups and captures run on (module
+# docstring: one per device, for the process).
+_CAPTURE_STREAMS: Dict[int, Any] = {}
 
 
 def setup_logging(level: str = "info") -> None:
@@ -143,7 +160,9 @@ class RenderEngine:
         docstring), warmed up and captured with autograd on, its inputs
         restored after the capture. A rate-limited heartbeat logs the
         elapsed time of long registrations (the reference's compile
-        progress filter, engine.py:104-126)."""
+        progress filter, engine.py:104-126). A program already registered
+        under `name` is released first (module docstring)."""
+        self.release(name)
         leaves, spec = pytree.tree_flatten(tuple(example_args))
         for leaf in leaves:
             for t in _tensors_of(leaf):
@@ -181,11 +200,24 @@ class RenderEngine:
         self.programs[name] = prog
         return prog
 
+    def release(self, name: str) -> None:
+        """Drop the program `name` if there is one: reset its graph, drop
+        its captured inputs and outputs, and hand its memory pool back to
+        the device."""
+        prog = self.programs.pop(name, None)
+        if prog is None:
+            return
+        prog.in_leaves = prog.out_leaves = ()
+        if prog.graph is not None:
+            prog.graph.reset()
+            prog.graph = None
+            torch.cuda.empty_cache()
+
     def _capture(self, name: str, fn: Callable, args: tuple, grad: bool):
-        """Build the kernels, run fn WARMUP_CALLS times on a side stream,
-        then capture one call; with `grad`, under autograd, and the input
-        tensors copied back in place to what they held before the
-        warm-ups. Returns (graph, captured outputs)."""
+        """Build the kernels, run fn WARMUP_CALLS times on the device's
+        side stream, then capture one call on it; with `grad`, under
+        autograd, and the input tensors copied back in place to what they
+        held before the warm-ups. Returns (graph, captured outputs)."""
         cuda_lib.library()
         dev = self.device
         inputs = [t for leaf in pytree.tree_leaves(tuple(args))
@@ -193,7 +225,9 @@ class RenderEngine:
         with torch.no_grad():
             saved = [t.detach().clone() for t in inputs] if grad else []
         with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
+            side = _CAPTURE_STREAMS.get(dev.index)
+            if side is None:
+                side = _CAPTURE_STREAMS[dev.index] = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side), torch.inference_mode(not grad):
                 for _ in range(WARMUP_CALLS):
@@ -201,7 +235,8 @@ class RenderEngine:
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph), torch.inference_mode(not grad):
+                with torch.cuda.graph(graph, stream=side), \
+                        torch.inference_mode(not grad):
                     out = fn(*args)
             except Exception as e:
                 raise RuntimeError(f"program '{name}' could not be captured "

@@ -140,10 +140,7 @@ def init_state(model: GaussianModel,
         raise ValueError("init_state: the model's parameters do not "
                          "require grad; pass model.trainable()")
     zero = torch.zeros((), dtype=torch.int32, device=model.device)
-    adam = {label: AdamState(zero.clone(),
-                             torch.zeros_like(getattr(model, label)),
-                             torch.zeros_like(getattr(model, label)))
-            for label in LABELS}
+    adam = {label: init_adam(getattr(model, label)) for label in LABELS}
     return TrainState(model, OptState(adam, zero.clone()), zero.clone())
 
 
@@ -181,6 +178,26 @@ def _adam_direction(grad: torch.Tensor, st: AdamState, eps: float):
     bc1 = 1.0 - torch.pow(torch.full_like(count_f, B1), count_f)
     bc2 = 1.0 - torch.pow(torch.full_like(count_f, B2), count_f)
     return (st.mu / bc1) / (torch.sqrt(st.nu / bc2) + eps)
+
+
+@torch.no_grad()
+def adam_apply(param: torch.Tensor, grad: torch.Tensor, st: AdamState,
+               lr: float, eps: float = 1e-15) -> None:
+    """optax.adam(lr, b1=0.9, b2=0.999, eps) + apply_updates on one tensor,
+    in place (the pose and exposure optimizers)."""
+    param.copy_(param + _adam_direction(grad, st, eps) * -lr)
+
+
+def select_row(x: torch.Tensor, view_idx: torch.Tensor) -> torch.Tensor:
+    """x[view_idx] for a () integer tensor on x's device, without reading
+    the index back to the host (a captured program's per-view row)."""
+    return x.index_select(0, view_idx.reshape(1).to(torch.int64))[0]
+
+
+def init_adam(param: torch.Tensor) -> AdamState:
+    """optax.adam's fresh state for `param`: count 0, zero moments."""
+    return AdamState(torch.zeros((), dtype=torch.int32, device=param.device),
+                     torch.zeros_like(param), torch.zeros_like(param))
 
 
 @torch.no_grad()
@@ -235,10 +252,17 @@ def register_step(engine: RenderEngine, state: TrainState, camera: Camera,
     def step(state: TrainState, camera: Camera, target: torch.Tensor):
         return train_step(state, camera, target, raster_cfg, train_cfg)[1]
 
-    example = (state, Camera(camera.view.clone(), camera.proj.clone(),
-                             camera.env_rot.clone()),
-               target.detach().clone())
-    return engine.register(name, step, example, grad=True)
+    return engine.register(name, step, (state, *static_copies(camera,
+                                                              target)),
+                           grad=True)
+
+
+def static_copies(camera: Camera, target: torch.Tensor):
+    """The engine's own copies of an example camera and target: the static
+    inputs each run copies into, so a copy-in never writes the caller's
+    view."""
+    return (Camera(camera.view.clone(), camera.proj.clone(),
+                   camera.env_rot.clone()), target.detach().clone())
 
 
 def fit(model: GaussianModel, cameras, targets, raster_cfg: RasterConfig,

@@ -98,6 +98,21 @@ def write_colmap(root, images, w2cs, intrinsics, xyz, rgb_u8, *,
     return root
 
 
+def project_tracks(xyz, w2cs, intrinsics, width, height):
+    """Per view, the SfM points it observes as COLMAP 2D points (x, y,
+    point id): each point projected by the pinhole camera, kept where it
+    lies in front of the camera and inside the frame."""
+    out = []
+    for w2c, (fx, fy, cx, cy) in zip(w2cs, intrinsics):
+        cam = np.asarray(xyz, np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+        z = cam[:, 2]
+        u = fx * cam[:, 0] / np.maximum(z, 1e-9) + cx
+        v = fy * cam[:, 1] / np.maximum(z, 1e-9) + cy
+        seen = (z > 0.01) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+        out.append([(u[k], v[k], k + 1) for k in np.nonzero(seen)[0]])
+    return out
+
+
 def write_transforms(root, images, w2cs, *, kind="blender", fov_x=0.9,
                      intrinsics=None, name="transforms.json", stem="r"):
     """A transforms.json set: blender (camera_angle_x, bare stems) or

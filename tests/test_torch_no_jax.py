@@ -3,7 +3,9 @@ subprocess blocks every `jax` import and every import of
 `gaussian_splat_ipu_tpu` (not of the port), imports the whole port,
 renders a tiny frame, bins it into row buckets, takes one train step on
 the CPU and one through the engine's step program, writes and reads a
-.splat and a COLMAP capture, and seeds a model from points."""
+.splat and a COLMAP capture, seeds a model from points, and runs the
+training extras: a densify step and event, an aux step (pose + exposure)
+and the sparse depth loss."""
 
 import os
 import subprocess
@@ -89,6 +91,24 @@ CHILD = textwrap.dedent("""
     assert len(fs) == 1 and xyz.shape == (1, 3)
     GaussianModel.from_points(np.random.rand(5, 3), np.random.rand(5, 3),
                               device="cpu")
+
+    from gaussian_splat_ipu_tpu_torch.train import aux_opt, densify, depth
+    dstate = densify.init_state(200, 240, device="cpu")
+    dst = trainer.init_state(densify.pad_model(model, 240).trainable(), tc)
+    loss = densify.make_train_step(cfg, tc)(
+        dst, dstate.grad_sum, dstate.vis_count, cam, out.image * 0.5)
+    assert float(loss) > 0.0 and int(dstate.vis_count.sum()) > 0
+    _, dstate = densify.densify_and_prune(
+        dst, dstate, densify.DensifyConfig(grad_threshold=1e-9))
+    assert int(dstate.alive.sum()) > 200
+    aux = aux_opt.init_aux_state(2, 1e-3, 1e-2, device="cpu")
+    loss = aux_opt.make_aux_step(cfg, tc, 1e-3, 1e-2)(
+        state, aux, torch.tensor(1), cam, out.image * 0.5, None, None)
+    assert float(loss) > 0.0 and float(aux.pose.deltas.abs().sum()) > 0.0
+    obs = torch.tensor([[20.0, 16.0, 3.0], [30.0, 10.0, 4.0]])
+    d = depth.sparse_depth_loss(model, cam, obs, torch.ones(2, dtype=bool),
+                                cfg)
+    assert bool(torch.isfinite(d))
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
     assert not any(k == REF or k.startswith(REF + ".") for k in sys.modules)
     print("OK")

@@ -8,6 +8,8 @@ equals its snapshot bit for bit, replays count no launch, and each of 3
 replays matches the eager step from the same state within kernel D's
 row-scaled bound (atomics reorder the gradient sums)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,8 @@ from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
-from gaussian_splat_ipu_tpu_torch.train import trainer
+from gaussian_splat_ipu_tpu_torch.train import (aux_opt, densify, depth,
+                                                trainer)
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig)
 
@@ -195,3 +198,175 @@ def test_captured_step_matches_eager_steps():
                            eager.opt_state.means_lr_count)
         assert torch.equal(state.step, eager.step)
     assert int(state.step) == 3
+
+
+def _densify_state(device, n=300, cap=400):
+    state = _state("cpu", n=n)
+    model = densify.pad_model(GaussianModel.from_numpy(
+        state.params.to_numpy(), device), cap)
+    return (trainer.init_state(model.trainable(), TC),
+            densify.init_state(n, cap, device=device))
+
+
+def _depth_pack(device, views=3):
+    rng = np.random.default_rng(3)
+    return depth.pack_observations(
+        [rng.uniform([0, 0, 2.0], [64, 48, 5.0], (20 + 5 * k, 3)).astype(
+            np.float32) for k in range(views)], device=device)
+
+
+def _densify_leaves(state, dstate):
+    return state.to_numpy() + dstate.to_numpy()[:3]
+
+
+def test_registered_densify_and_aux_steps_equal_their_eager_steps():
+    """On the CPU the densify program (with depth, the view index picking
+    the packed rows) and the aux program equal their step functions bit
+    for bit."""
+    cams, targets = _views("cpu")
+    obs_all, mask_all = _depth_pack("cpu")
+    state, d = _densify_state("cpu")
+    twin, dtwin = (trainer.TrainState.from_numpy(state.to_numpy(), "cpu"),
+                   densify.DensifyState.from_numpy(d.to_numpy(), "cpu"))
+    eng = RenderEngine(RuntimeConfig(device="cpu"))
+    vi = torch.zeros((), dtype=torch.int64)
+    densify.register_step(eng, state, d, cams[0], targets[0], CFG, TC, 0.1,
+                          vi, obs_all, mask_all)
+    step = densify.make_train_step(CFG, TC, 0.1)
+    for k, (cam, target) in enumerate(zip(cams, targets)):
+        loss = eng.run(densify.STEP_PROGRAM, state, d.grad_sum, d.vis_count,
+                       torch.tensor(k), cam, target, obs_all, mask_all)
+        want = step(twin, dtwin.grad_sum, dtwin.vis_count, cam, target,
+                    obs_all[k], mask_all[k])
+        assert torch.equal(loss, want)
+    _assert_leaves_equal(_densify_leaves(state, d),
+                         _densify_leaves(twin, dtwin))
+    assert int(d.vis_count.max()) == 3
+
+    state = _state("cpu")
+    twin = _copy(state, "cpu")
+    aux = aux_opt.init_aux_state(3, 1e-3, 1e-2, device="cpu")
+    aux_twin = aux_opt.init_aux_state(3, 1e-3, 1e-2, device="cpu")
+    aux_opt.register_step(eng, state, aux, vi, cams[0], targets[0], obs_all,
+                          mask_all, CFG, TC, 1e-3, 1e-2, 0.1)
+    step = aux_opt.make_aux_step(CFG, TC, 1e-3, 1e-2, 0.1)
+    for k in (2, 0):
+        loss = eng.run(aux_opt.STEP_PROGRAM, state, aux, torch.tensor(k),
+                       cams[k], targets[k], obs_all, mask_all)
+        want = step(twin, aux_twin, torch.tensor(k), cams[k], targets[k],
+                    obs_all[k], mask_all[k])
+        assert torch.equal(loss, want)
+    _assert_leaves_equal(state.to_numpy() + aux.to_numpy(),
+                         twin.to_numpy() + aux_twin.to_numpy())
+
+
+def test_registering_a_name_again_replaces_its_program():
+    eng = RenderEngine(RuntimeConfig(device="cpu"))
+    first = eng.register("p", lambda x: x + 1, (torch.ones(2),))
+    second = eng.register("p", lambda x: x * 3, (torch.ones(2),))
+    assert eng.programs["p"] is second and first.in_leaves == ()
+    assert torch.equal(eng.run("p", torch.ones(2)), torch.full((2,), 3.0))
+    eng.release("p")
+    eng.release("p")                    # nothing left: a no-op
+    assert "p" not in eng.programs
+
+
+def _cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode "
+                    "(chip_smoke.py phase 14 runs this at full size)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+GROUP_CFG = RasterConfig(image_width=64, image_height=48, tile_width=16,
+                         tile_height=16, chunk_size=32,
+                         pair_capacity=1 << 13, tile_group=2,
+                         exact_tile_test=True)
+
+
+@pytest.mark.cuda
+def test_captured_densify_step_matches_eager_steps():
+    """The densify step with depth captured: replays count no launch, and
+    each matches the eager step from the same state (loss and grad_sum
+    within D's row-scaled bound, vis_count equal)."""
+    dev = _cuda_device()
+    cams, targets = _views(dev)
+    obs_all, mask_all = _depth_pack(dev)
+    state, d = _densify_state(dev, n=1500, cap=2048)
+    snapshot = _densify_leaves(state, d)
+    eng = RenderEngine(RuntimeConfig(device="cuda"))
+    cuda_lib.launches.clear()
+    densify.register_step(eng, state, d, cams[0], targets[0], GROUP_CFG, TC,
+                          0.1, torch.zeros((), dtype=torch.int64, device=dev),
+                          obs_all, mask_all)
+    _assert_leaves_equal(_densify_leaves(state, d), snapshot)
+    captured = dict(cuda_lib.launches)
+    for k in ("rasterize_strict_aux", "rasterize_bwd"):
+        assert captured[k] == 2 * (engine_lib.WARMUP_CALLS + 1), captured
+    step = densify.make_train_step(GROUP_CFG, TC, 0.1)
+    for k, (cam, target) in enumerate(zip(cams, targets)):
+        eager = _copy(state, dev)
+        ed = densify.DensifyState.from_numpy(d.to_numpy(), dev)
+        before = dict(cuda_lib.launches)
+        loss = eng.run(densify.STEP_PROGRAM, state, d.grad_sum, d.vis_count,
+                       torch.tensor(k), cam, target, obs_all, mask_all)
+        assert dict(cuda_lib.launches) == before
+        want = step(eager, ed.grad_sum, ed.vis_count, cam, target,
+                    obs_all[k], mask_all[k])
+        torch.cuda.synchronize()
+        _within("loss", loss[None], want[None])
+        _within("grad_sum", d.grad_sum, ed.grad_sum)
+        assert torch.equal(d.vis_count, ed.vis_count)
+        assert torch.equal(state.step, eager.step)
+    assert int(d.vis_count.max()) == 3
+
+
+@pytest.mark.cuda
+def test_captured_aux_step_matches_eager_steps():
+    """Pose + exposure + depth in one captured program: replays match the
+    eager aux step from the same state within D's bound."""
+    dev = _cuda_device()
+    cams, targets = _views(dev)
+    obs_all, mask_all = _depth_pack(dev)
+    state = _state(dev, n=1500)
+    aux = aux_opt.init_aux_state(3, 1e-3, 1e-2, device=dev)
+    eng = RenderEngine(RuntimeConfig(device="cuda"))
+    aux_opt.register_step(eng, state, aux, torch.zeros(
+        (), dtype=torch.int64, device=dev), cams[0], targets[0], obs_all,
+        mask_all, GROUP_CFG, TC, 1e-3, 1e-2, 0.1)
+    step = aux_opt.make_aux_step(GROUP_CFG, TC, 1e-3, 1e-2, 0.1)
+    for k in (1, 2, 0):
+        eager = _copy(state, dev)
+        eaux = aux_opt.AuxState.from_numpy(aux.to_numpy(), dev, True, True)
+        loss = eng.run(aux_opt.STEP_PROGRAM, state, aux, torch.tensor(k),
+                       cams[k], targets[k], obs_all, mask_all)
+        want = step(eager, eaux, torch.tensor(k, device=dev), cams[k],
+                    targets[k], obs_all[k], mask_all[k])
+        torch.cuda.synchronize()
+        _within("loss", loss[None], want[None])
+        _within("deltas", aux.pose.deltas, eaux.pose.deltas)
+        _within("mats", aux.exposure.mats, eaux.exposure.mats)
+        assert torch.equal(aux.pose.opt_state.count,
+                           eaux.pose.opt_state.count)
+
+
+@pytest.mark.cuda
+def test_registering_again_frees_the_old_graph_pool():
+    """Three more captures of one train program under the same name leave
+    the allocator's reserved bytes where the first left them (within half
+    a capture's own reservation)."""
+    dev = _cuda_device()
+    cams, targets = _views(dev)
+    state = _state(dev, n=1500)
+    eng = RenderEngine(RuntimeConfig(device="cuda"))
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved(dev)
+    trainer.register_step(eng, state, cams[0], targets[0], GROUP_CFG, TC)
+    r1 = torch.cuda.memory_reserved(dev)
+    for degree in (0, 1, 2):
+        cfg = dataclasses.replace(GROUP_CFG, active_sh_degree=degree)
+        trainer.register_step(eng, state, cams[0], targets[0], cfg, TC)
+    r4 = torch.cuda.memory_reserved(dev)
+    assert r1 > r0 and r4 <= r1 + 0.5 * (r1 - r0), (r0, r1, r4)

@@ -237,6 +237,29 @@ def test_colmap_epoch_from_sfm_points_matches_jax(tmp_path, capsys):
         assert abs(got[k] - want[k]) <= PSNR_ATOL + 0.005, k
 
 
+def test_shuffled_epochs_match_jax(tmp_path, capsys):
+    """--shuffle draws a fresh permutation of the views each epoch, as the
+    reference does; shuffling the previous epoch's order instead composes
+    the permutations and departs from the reference from epoch 2 on. Three
+    epochs over three views from the SfM points, against the JAX CLI."""
+    w, h, intr = 64, 48, (52.0, 53.0, 32.0, 24.0)
+    w2cs = orbit_w2c(3, radius=3.0)
+    images, src = _posed_renders(w2cs, w, h, intr)
+    xyz = src.means.detach().numpy()[::5]
+    rgb = np.random.default_rng(2).integers(0, 256, (len(xyz), 3))
+    cap = write_colmap(str(tmp_path / "cap"), images, w2cs, [intr] * 3, xyz,
+                       rgb)
+    argv = ["--dataset", cap, "--shuffle", "--steps", "9",
+            "--pair-capacity", "8192", "--log-level", "off"]
+    assert japp.main(argv) == 0
+    want = _printed(capsys.readouterr().out.strip().splitlines()[-1])
+    got = app.run(argv + ["--device", "cpu"])
+    assert got["step"] == 9 and got["views"] == 3
+    assert abs(got["final_loss"] - want["final_loss"]) <= (
+        LOSS_RTOL * want["final_loss"] + 5e-7)
+    assert abs(got["psnr"] - want["psnr"]) <= PSNR_ATOL + 0.005
+
+
 def test_transforms_rgba_white_background_random_init(tmp_path):
     w = h = 48
     intr = (40.0, 40.0, 24.0, 24.0)
@@ -256,19 +279,30 @@ def test_transforms_rgba_white_background_random_init(tmp_path):
     assert stats["target_overflow"] == [0, 0, 0]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--densify"], ["--capacity", "10"], ["--densify-every", "5"],
-    ["--densify-grad-threshold", "1e-3"], ["--densify-from", "1"],
-    ["--densify-until", "9"], ["--auto-grow"], ["--distributed"],
-    ["--view-batch", "2"], ["--pose-opt", "1e-3"],
-    ["--exposure-opt", "1e-2"], ["--depth-loss", "0.1"],
-    ["--sh-step-every", "100"], ["--max-device-views", "2"]])
+@pytest.mark.parametrize("flags", [["--distributed"], ["--view-batch", "2"]])
 def test_unported_flags_are_refused(flags, capsys):
     with pytest.raises(SystemExit):
         app.parse_args(["--input", "x.ply", *flags])
     err = capsys.readouterr().err
     assert "not ported to the torch package yet" in err
-    assert "ROADMAP.md" in err
+    assert "ROADMAP.md" in err and "Distributed path" in err
+
+
+@pytest.mark.parametrize("flags,dest,value", [
+    (["--densify"], "densify", True), (["--capacity", "10"], "capacity", 10),
+    (["--densify-every", "5"], "densify_every", 5),
+    (["--densify-grad-threshold", "1e-3"], "densify_grad_threshold", 1e-3),
+    (["--densify-from", "1"], "densify_from", 1),
+    (["--densify-until", "9"], "densify_until", 9),
+    (["--auto-grow"], "auto_grow", True),
+    (["--pose-opt", "1e-3"], "pose_opt", 1e-3),
+    (["--exposure-opt", "1e-2"], "exposure_opt", 1e-2),
+    (["--depth-loss", "0.1"], "depth_loss", 0.1),
+    (["--sh-step-every", "100"], "sh_step_every", 100),
+    (["--max-device-views", "2"], "max_device_views", 2)])
+def test_training_extras_flags_are_accepted(flags, dest, value):
+    assert getattr(app.parse_args(["--input", "x.ply", *flags]),
+                   dest) == value
 
 
 def test_input_is_required(capsys):
