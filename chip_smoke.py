@@ -122,10 +122,33 @@ Phases, each printing its own lines:
      host queues them without waiting on the device; births equal to
      min(candidates, free slots) and no kept slot overwritten; the capture
      seconds of every registration, and the reserved bytes before and
-     after 3 re-registrations (old pools freed).
-The launch counters are zeroed just before each of phases 3-14 and read
+     after 3 re-registrations (old pools freed);
+ 15. the distributed path (parallel/), DIST_SHARDS shards all on cuda:0:
+     (a) kernel C in its three modes and D against their plain versions on
+     the 1M frame's last strip (rows 18-23 of 23, one phantom: a nonzero
+     tile offset), C and nc equal, D within TOL_BWD_*, each one's time and
+     bound beside its whole-grid row; (b) the 1M frame sharded, both
+     exchanges, 3 angles, each held to the single-device frame (image
+     within TOL_RASTER, pairs, tile counts and truncation equal, no
+     overflow or exchange overflow), its replay bit-equal to the eager
+     sharded frame, pipelined ms of the single-device replay and the
+     sharded replay and eager frame in turns; (c) the 1M train step
+     sharded, replayed as a train program, each held to the single-device
+     eager step (step_err); (d) a DIST_VB_MESH (view groups, shards) mesh:
+     render_views_sharded of DIST_VB_VIEWS views at 640x360, each within
+     TOL_RASTER of its single-device render, and the view-batch step
+     replayed, held to the single-device step on the mean loss; (e) the
+     app with --distributed (PNG equal to phase 3's, frames replayed), its
+     UI session (the histogram's exchange_overflow 0), the train CLI with
+     --distributed --densify on phase 13's capture (DIST_EPOCHS epochs: no
+     drop of either kind, alive growing, loss falling) and with
+     --view-batch in distill mode (no drops, loss falling); (f)
+     MH_PROCESSES processes sharing cuda:0 over gloo (parallel/
+     multihost.py; this script with --mh-child) load their shards of the
+     app's PLY and render a frame equal to the one-process render.
+The launch counters are zeroed just before each of phases 3-15 and read
 just after it: every kernel must have carried the path that uses it. The
-apps (phases 3, 6, 8, 12, 13, 14) run their frames and steps as graph
+apps (phases 3, 6, 8, 12, 13, 14, 15) run their frames and steps as graph
 replays, which launch through no wrapper: a kernel of a captured program
 counts engine.WARMUP_CALLS + 1 launches (warm-up and capture) however
 many frames or steps are replayed, and the engine phase checks that
@@ -133,7 +156,8 @@ replays count 0.
 Neither jax nor the JAX package (gaussian_splat_ipu_tpu) may be imported.
 Then one JSON line of per-kernel results, the card line, and last the
 status line {"ok": true, "device": {...}}. Any failure exits non-zero
-before it.
+before it, and so does a run still going after DEADLINE_S (with every
+thread's stack).
 """
 
 from __future__ import annotations
@@ -141,6 +165,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import faulthandler
 import json
 import os
 import subprocess
@@ -232,6 +257,20 @@ EX_POSE_LR = 5e-4
 EX_EXPOSURE_LRS = (1e-2, 1e-3)
 EX_POSE_EPOCHS = 8
 EX_SLOTS_1M = 1 << 21
+# Distributed phase: the shards of the 1M and app meshes (all on cuda:0),
+# the view batch's (view groups, shards) mesh and its views, and the
+# epochs of the train CLI runs.
+DIST_SHARDS = 4
+DIST_VB_MESH = (2, 2)
+DIST_VB_VIEWS = 4
+DIST_EPOCHS = 2
+# Multi-process phase: processes sharing cuda:0 over gloo, and each one's
+# time limit.
+MH_PROCESSES = 2
+MH_TIMEOUT_S = 300
+# A run still going after this many seconds prints every thread's stack and
+# exits non-zero (the run's limit is 1200 s).
+DEADLINE_S = 1140
 # DeviceTimer: the least spin queued before each timed run, how often a
 # run a host stall outlasted is timed again, the cycles of the spin that
 # measures the rate it runs at, and the device time and the most calls of
@@ -291,19 +330,20 @@ def bound(n_bytes: float, ops: float) -> dict:
                 bytes=int(n_bytes), operations=int(ops))
 
 
-def raster_work(binned, cfg, nc) -> dict:
-    """What kernels C and D walk on one frame (nc from the strict aux
-    forward): pairs of the walk (each range cut at start + the tile's
+def raster_work(binned, cfg, nc, tile_offset: int = 0) -> dict:
+    """What kernels C and D walk on one frame or strip (nc from the strict
+    aux forward): pairs of the walk (each range cut at start + the tile's
     largest nc), those the tile cull keeps, and the live evaluations;
     evaluations = pairs x pixels of a tile."""
     from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
         live_evaluations, surviving_pairs)
-    walked, kept = surviving_pairs(binned, cfg, nc)
+    walked, kept = surviving_pairs(binned, cfg, nc, tile_offset)
     npix = cfg.pixels_per_tile
     return dict(walked_pairs=walked, kept_pairs=kept,
                 walked_evaluations=walked * npix,
                 kept_evaluations=kept * npix,
-                live_evaluations=live_evaluations(binned, cfg, nc))
+                live_evaluations=live_evaluations(
+                    binned, cfg, nc, tile_offset=tile_offset))
 
 
 def raster_bytes(binned, cfg, per_pixel: int, table_rows_out: int = 0):
@@ -1350,10 +1390,12 @@ def extras_1m(model_1m, cfg, tc, cam, timer) -> dict:
         reserved_mb_after_3_registrations=r_after / 2 ** 20)
 
 
-def ui_session(ply_path: str, probe_cache: str, out_png: str) -> dict:
-    """Phase 12: the app with --ui-port on the card, driven by an
-    in-process InterfaceClient; fails on any step that does not happen
-    within UI_DEADLINE_S. Returns what the session saw."""
+def ui_session(ply_path: str, probe_cache: str, out_png: str,
+               extra=()) -> dict:
+    """Phase 12: the app with --ui-port on the card (and the flags
+    `extra`), driven by an in-process InterfaceClient; fails on any step
+    that does not happen within UI_DEADLINE_S. Returns what the session
+    saw."""
     import json as json_lib
     import socket
     import threading
@@ -1372,7 +1414,7 @@ def ui_session(ply_path: str, probe_cache: str, out_png: str) -> dict:
                 "--input", ply_path, "--width", str(WIDTH), "--height",
                 str(HEIGHT), "--ui-port", str(port), "--device", "cuda",
                 "--pair-capacity", "0", "--compile-cache", probe_cache,
-                "--output", out_png, "--log-level", "warn"])
+                "--output", out_png, "--log-level", "warn", *extra])
         except BaseException as e:
             result["error"] = repr(e)
 
@@ -1467,6 +1509,7 @@ def ui_session(ply_path: str, probe_cache: str, out_png: str) -> dict:
     if thread.is_alive() or result.get("rc") != 0:
         fail(f"ui: the app did not stop with rc 0: {result}")
     return dict(port=port, ready_s=ready_s, preview_shape=list(frames[0]),
+                exchange_overflow=hist["exchange_overflow"],
                 splat_histogram_total=splat_total,
                 points_histogram_total=sum(pts["counts"]),
                 splat_again_total=sum(back["counts"]),
@@ -1547,6 +1590,374 @@ def rowseg_config(binning, project, model, cam_of, cfg0):
         <= RS_CAP_TARGET)
 
 
+def dist_strip_capacity(splats, cfg, d: int, capacity) -> tuple:
+    """Each of the d strips' pair demand on one frame, and the per-shard
+    pair capacity for the worst: capacity(demand, chunk)."""
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.render import binning
+    rows = distributed._rows_per_device(cfg, d)
+    demand = []
+    for j in range(d):
+        b = binning.bin_splats(splats, cfg, j * rows, rows,
+                               cfg.pair_capacity)
+        demand.append(int(b.num_pairs + b.overflow))
+    return demand, capacity(max(demand), cfg.chunk_size)
+
+
+def dist_strip_kernels(splats, cfg, d: int, cap: int, results: dict,
+                       cuda_ms) -> dict:
+    """15 (a): kernel C in its three modes and kernel D against their plain
+    versions on the last strip of a d-shard mesh, at its tile offset: C
+    equal, nc equal, D within the row-scaled bound; each one's device time
+    and bound beside the whole-grid row of phase 2."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.render import binning
+    from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
+    from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
+        rasterize_backward_torch, rasterize_tiles_torch)
+    rows = distributed._rows_per_device(cfg, d)
+    row_lo = (d - 1) * rows
+    off = row_lo * cfg.tiles_x
+    binned = binning.bin_splats(splats, cfg, row_lo, rows, cap)
+    tiles, nc = rasterize.rasterize_tiles_aux(binned, cfg, off)
+    ref_tiles, ref_nc = rasterize_tiles_torch(binned, cfg, need_aux=True,
+                                              tile_offset=off)
+    torch.cuda.synchronize()
+    work = raster_work(binned, cfg, nc, off)
+    live = work["live_evaluations"]
+    relaxed = dataclasses.replace(cfg, strict_termination=False)
+    out = dict(shards=d, row_lo=row_lo, rows=rows,
+               phantom_rows=row_lo + rows - cfg.tiles_y, tile_offset=off,
+               tiles=binned.tile_starts.shape[0],
+               pairs=int(binned.num_pairs), **work, modes={})
+    err = exact_err("strip rasterize_strict_aux", ("tiles", "nc"),
+                    (tiles, nc), (ref_tiles, ref_nc))
+    out["modes"]["rasterize_strict_aux"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: rasterize.rasterize_tiles_aux(
+            binned, cfg, off), label="strip rasterize_strict_aux"),
+        **bound(raster_bytes(binned, cfg, 20), OPS_FWD_LIVE * live))
+    for name, c in (("rasterize_strict", cfg), ("rasterize_relaxed",
+                                                relaxed)):
+        got = rasterize.rasterize_tiles(binned, c, off)
+        ref = rasterize_tiles_torch(binned, c, tile_offset=off)
+        torch.cuda.synchronize()
+        out["modes"][name] = dict(
+            max_abs_err=exact_err(f"strip {name}", ("tiles",), (got,),
+                                  (ref,)),
+            ms=cuda_ms(lambda c=c: rasterize.rasterize_tiles(binned, c, off),
+                       label=f"strip {name}"),
+            **bound(raster_bytes(binned, cfg, 16), OPS_FWD_LIVE * live))
+    gen = torch.Generator(device=tiles.device).manual_seed(SEED + 15)
+    args = (binned.features, binned.tile_starts, binned.tile_ends,
+            torch.randn(tiles.shape, generator=gen, device=tiles.device),
+            1.0 - ref_tiles[..., 3], ref_nc, cfg, off)
+    got = rasterize.rasterize_backward(*args)
+    ref = rasterize_backward_torch(*args)
+    torch.cuda.synchronize()
+    out["modes"]["rasterize_bwd"] = dict(
+        max_abs_err=bwd_err("strip rasterize_bwd", got, ref),
+        ms=cuda_ms(lambda: rasterize.rasterize_backward(*args),
+                   label="strip rasterize_bwd"),
+        **bound(raster_bytes(binned, cfg, 24, 16), OPS_BWD_LIVE * live))
+    for name, m in out["modes"].items():
+        m["whole_grid_ms"] = results[name]["ms"]
+        m["whole_grid_bound_ms"] = results[name]["bound_ms"]
+    return out
+
+
+def dist_frames(model, cfg, d: int, cap: int, cam_host, angles,
+                timer) -> dict:
+    """15 (b): the 1M frame on a d-shard mesh on cuda:0, both exchanges,
+    each a program captured by a RenderEngine: at every angle the eager
+    sharded frame equals the single-device frame (image within TOL_RASTER,
+    pairs, tile counts and truncation equal, no overflow of either kind)
+    and its replay equals it bit for bit; then the pipelined ms of the
+    single-device replay and the sharded replay and eager frame in turns,
+    the replays' device ms and the profiler's device ms of all three."""
+    import torch
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    dev = model.device
+    mesh = mesh_lib.make_mesh(d, device="cuda:0")
+
+    def dev_args(a):
+        c = cam_host(a)
+        return (model, c.view.to(dev), c.proj.to(dev), c.env_rot.to(dev))
+
+    def replay(name, a):
+        c = cam_host(a)
+        return eng.run(name, model, c.view, c.proj, c.env_rot)
+
+    progs = {"single": app_main.splat_program(cfg)}
+    progs.update({ex: app_main.sharded_program(cfg, mesh, pair_capacity=cap,
+                                               exchange=ex)
+                  for ex in distributed.EXCHANGES})
+    eng = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    for name, fn in progs.items():
+        eng.register(name, fn, dev_args(angles[0]))
+    facts = dict(shards=d, devices=sorted({str(x) for x in mesh.devices}),
+                 device_count=torch.cuda.device_count(),
+                 pair_capacity_per_shard=cap,
+                 capture_s={k: p.compile_seconds
+                            for k, p in eng.programs.items()})
+    for ex in distributed.EXCHANGES:
+        per_angle = []
+        for a in angles:
+            with torch.inference_mode():
+                eager = progs[ex](*dev_args(a))
+                want = progs["single"](*dev_args(a))
+            got = replay(ex, a)
+            for f, x, y in zip(got._fields, got, eager):
+                if not torch.equal(x, y):
+                    fail(f"sharded 1M {ex} at {a} deg: the replay's {f} "
+                         "differs from the eager sharded frame")
+            err = float((eager.image - want.image).abs().max())
+            if not (err <= TOL_RASTER
+                    and torch.equal(eager.tile_counts, want.tile_counts)
+                    and int(eager.count) == int(want.count)
+                    and int(eager.truncated) == int(want.truncated)):
+                fail(f"sharded 1M {ex} at {a} deg: image {err} or counts "
+                     "differ from the single-device frame")
+            if int(eager.overflow) or int(eager.exchange_overflow):
+                fail(f"sharded 1M {ex} at {a} deg: overflow "
+                     f"{int(eager.overflow)}, exchange overflow "
+                     f"{int(eager.exchange_overflow)}")
+            per_angle.append(dict(angle=a, max_abs_diff=err,
+                                  pairs=int(eager.count),
+                                  truncated=int(eager.truncated)))
+        facts[ex] = per_angle
+    n = len(angles)
+
+    def eager_sharded(k):
+        with torch.inference_mode():
+            return progs["all_to_all"](*dev_args(angles[k % n]))
+
+    turns = [("single_replay", lambda k: replay("single", angles[k % n])),
+             ("sharded_replay", lambda k: replay("all_to_all",
+                                                 angles[k % n])),
+             ("sharded_eager", eager_sharded)]
+    times = {name: [] for name, _ in turns}
+    for name, step in turns + turns[::-1]:
+        times[name].append(float(np.median(pipelined_ms(step,
+                                                        ENGINE_FRAMES))))
+    facts.update(
+        pipelined_ms=times, frames_per_median=ENGINE_FRAMES,
+        replay_device_ms={k: timer.ms(lambda k=k: replay(k, angles[0]),
+                                      label=f"sharded 1M {k} replay")
+                          for k in ("single", "all_to_all")},
+        profiler_ms=dict(
+            single_replay=profiled_ms(lambda: replay("single", angles[0]),
+                                      reps=3),
+            sharded_replay=profiled_ms(lambda: replay("all_to_all",
+                                                      angles[0]), reps=3),
+            sharded_eager=profiled_ms(lambda: eager_sharded(0), reps=3)),
+        reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20)
+    return facts
+
+
+def dist_train_step(model, cfg, tc, d: int, cap: int, cams, targets,
+                    timer) -> dict:
+    """15 (c): the sharded train step on a d-shard mesh on cuda:0,
+    registered as a train program; the state after register equal to its
+    snapshot; STEP_EQ_STEPS replays, each held to the single-device eager
+    step from the same state (step_err); the replay's device ms."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.train import trainer
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    dev = model.device
+    mesh = mesh_lib.make_mesh(d, device="cuda:0")
+    state = trainer.init_state(mesh_lib.shard_model(model, mesh).trainable(),
+                               tc)
+    snapshot = state.to_numpy()
+    eng = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    prog = trainer.register_step(
+        eng, state, cams[0], targets[0], cfg, tc,
+        step_fn=distributed.make_sharded_train_step(mesh, cfg, tc,
+                                                    pair_capacity=cap))
+    for i, (a, b) in enumerate(zip(state.to_numpy(), snapshot)):
+        if not np.array_equal(a, b):
+            fail(f"sharded train: register left leaf {i} other than its "
+                 "snapshot")
+    del snapshot
+    held, n = [], len(cams)
+    for k in range(STEP_EQ_STEPS):
+        eager = trainer.TrainState.from_numpy(state.to_numpy(), dev)
+        loss = eng.run(trainer.STEP_PROGRAM, state, cams[k % n],
+                       targets[k % n])
+        _, want = trainer.train_step(eager, cams[k % n], targets[k % n], cfg,
+                                     tc)
+        held.append(step_err(f"sharded train step {k}", state, eager, loss,
+                             want, tc))
+        del eager
+    return dict(
+        shards=d, pair_capacity_per_shard=cap, capture_s=prog.compile_seconds,
+        steps_held=len(held), held=held,
+        replay_device_ms=timer.ms(lambda: eng.run(
+            trainer.STEP_PROGRAM, state, cams[0], targets[0]),
+            label="sharded train replay"),
+        reserved_mb=torch.cuda.memory_reserved(dev) / 2 ** 20)
+
+
+def dist_view_batch(model, cfg, tc, cams, targets, timer) -> dict:
+    """15 (d): a (view groups, shards) mesh on cuda:0: render_views_sharded
+    of DIST_VB_VIEWS views, each within TOL_RASTER of its single-device
+    render, no drops; the view-batch step registered as a train program,
+    one replay held to the single-device step on the mean of the views'
+    losses (step_err); the replay's device ms."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
+    from gaussian_splat_ipu_tpu_torch.render import pipeline
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.train import losses, trainer
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    dev = model.device
+    mesh = mesh_lib.make_mesh_2d(*DIST_VB_MESH, device="cuda:0")
+    sm = mesh_lib.shard_model(model, mesh)
+    cams = tuple(cams[:DIST_VB_VIEWS])
+    tgts = torch.stack(targets[:DIST_VB_VIEWS])
+    with torch.inference_mode():
+        images, stats = distributed.render_views_sharded(
+            sm, cams, cfg, mesh, pair_capacity=cfg.pair_capacity,
+            with_stats=True)
+        errs = [float((im - pipeline.render(sm, c, cfg).image).abs().max())
+                for im, c in zip(images, cams)]
+    drops = {k: int(v) for k, v in stats.items()}
+    if max(errs) > TOL_RASTER or any(drops.values()):
+        fail(f"view batch render: errors {errs}, drops {drops}")
+    state = trainer.init_state(sm.trainable(), tc)
+    eng = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    step = distributed.make_view_batch_train_step(
+        mesh, cfg, tc, pair_capacity=cfg.pair_capacity)
+    prog = eng.register("view_batch_step", step, (
+        state, tuple(trainer.static_copies(c, tgts)[0] for c in cams),
+        tgts.clone()), grad=True)
+    eager = trainer.TrainState.from_numpy(state.to_numpy(), dev)
+    loss, step_drops = eng.run("view_batch_step", state, cams, tgts)
+    params = eager.params
+    want = torch.mean(torch.stack([
+        losses.render_loss(pipeline.render_image(params, c, cfg), t,
+                           tc.ssim_weight) for c, t in zip(cams, tgts)]))
+    grads = torch.autograd.grad(want, tuple(params.parameters()))
+    trainer.apply_param_updates(params, dict(zip(FIELDS, grads)),
+                                eager.opt_state, tc)
+    eager.step.add_(1)
+    held = step_err("view batch step", state, eager, loss, want.detach(), tc)
+    if any(step_drops.tolist()):
+        fail(f"view batch step dropped rows: {step_drops.tolist()}")
+    return dict(
+        mesh=list(DIST_VB_MESH), views=len(cams), gaussians=sm.num_gaussians,
+        image_max_abs_diff=errs, drops=drops, step_held=held,
+        capture_s=prog.compile_seconds,
+        replay_device_ms=timer.ms(lambda: eng.run(
+            "view_batch_step", state, cams, tgts),
+            label="view batch step replay"))
+
+
+def mh_cfg():
+    """The multi-process phase's frame: the app's, strict (a frame that
+    does not depend on which kernel mode the process runs)."""
+    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+    return RasterConfig(image_width=WIDTH, image_height=HEIGHT,
+                        pair_capacity=1 << 19)
+
+
+def mh_camera(scene):
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    return Camera.orbit(scene.bb_min, scene.bb_max, float(np.radians(40.0)),
+                        WIDTH / HEIGHT, rot_y_deg=30.0, device="cpu")
+
+
+def mh_child(rank: str, world: str, coord: str, ply: str, out: str) -> int:
+    """One process of phase 15 (f): join the gloo group, load this
+    process's shard of the PLY, render the frame over the process mesh on
+    cuda:0 and save it."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed, multihost
+    assert multihost.initialize(coord, int(world), int(rank), device="cuda")
+    mesh = multihost.make_process_mesh("cuda")
+    scene = multihost.load_scene_sharded(ply, mesh)
+    cfg = mh_cfg()
+    with torch.inference_mode():
+        res = distributed.render_sharded(
+            scene.model, mh_camera(scene).to(mesh.device), cfg, mesh,
+            pair_capacity=cfg.pair_capacity)
+        np.savez(os.path.join(out, f"rank{rank}.npz"),
+                 image=res.image.cpu().numpy(), num_pairs=int(res.num_pairs),
+                 overflow=int(res.overflow),
+                 exchange_overflow=int(res.exchange_overflow),
+                 rows=scene.model.num_gaussians,
+                 backend=torch.distributed.get_backend(),
+                 device=str(mesh.device))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mh_phase(tmp: str, ply_path: str, dev) -> dict:
+    """15 (f): MH_PROCESSES processes sharing cuda:0 over gloo
+    (parallel/multihost.py) each load their shard of the app's PLY and
+    render the frame; every process's image equals the one-process render
+    over a mesh of as many shards on cuda:0, pairs equal, nothing
+    dropped."""
+    import socket
+
+    import torch
+    from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
+    out = tempfile.mkdtemp(dir=tmp, prefix="mh_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mh-child", str(r),
+         str(MH_PROCESSES), coord, ply_path, out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(MH_PROCESSES)]
+    try:
+        logs = [p.communicate(timeout=MH_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"multi-process: a process outlived {MH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.kill()
+    wall_s = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"multi-process: process {r} exited {p.returncode}: "
+                 f"{err[-2000:]}")
+    got = [np.load(os.path.join(out, f"rank{r}.npz"))
+           for r in range(MH_PROCESSES)]
+    cfg = mh_cfg()
+    scene = scene_io.load_scene(ply_path, device=dev)
+    mesh = mesh_lib.make_mesh(MH_PROCESSES, device="cuda:0")
+    with torch.inference_mode():
+        want = distributed.render_sharded(
+            mesh_lib.shard_model(scene.model, mesh),
+            mh_camera(scene).to(dev), cfg, mesh,
+            pair_capacity=cfg.pair_capacity)
+    image = want.image.cpu().numpy()
+    for r, g in enumerate(got):
+        if not (np.array_equal(g["image"], image)
+                and int(g["num_pairs"]) == int(want.num_pairs)
+                and int(g["overflow"]) == int(g["exchange_overflow"]) == 0):
+            fail(f"multi-process: process {r}'s frame differs from the "
+                 "one-process render (or dropped pairs)")
+    return dict(processes=MH_PROCESSES, backend=str(got[0]["backend"]),
+                devices=[str(g["device"]) for g in got],
+                rows_per_process=[int(g["rows"]) for g in got],
+                num_pairs=int(want.num_pairs), image_equal=True,
+                lit_pixels=int((image[..., 3] > 0).sum()), wall_s=wall_s)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
@@ -1554,7 +1965,14 @@ def main() -> int:
                     help="a directory holding the parent commit's scan.cu "
                     "(one CTA per row): phase 2 times it in turns with the "
                     "row scan")
+    ap.add_argument("--mh-child", nargs=5, metavar=("RANK", "WORLD", "COORD",
+                                                    "PLY", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mh_child:
+        faulthandler.dump_traceback_later(MH_TIMEOUT_S, exit=True)
+        return mh_child(*args.mh_child)
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "one CUDA GPU")
@@ -2266,6 +2684,7 @@ def main() -> int:
         say("engine", cell=label, **facts,
             launches=launches[f"engine {label}"])
 
+    step_facts = {}
     # The train step as a captured program: train 1M (phase 5's model,
     # capacity and L1 loss, its camera at angle 0, targets rendered at
     # other angles so that every step has a gradient) and train app
@@ -2290,6 +2709,7 @@ def main() -> int:
              ("stream_expand", "rasterize_strict_aux", "rasterize_bwd"))):
         facts, launches[f"train step {label}"] = step_check(
             label, model, cfg, tc, cams, tgts, timer)
+        step_facts[label] = facts
         need_exact(f"train step {label} capture",
                    launches[f"train step {label}"], kernels, captured)
         say("train_step_engine", cell=label, **facts,
@@ -2371,6 +2791,121 @@ def main() -> int:
                    "rasterize_bwd"), 1)
     say("extras_1m", **facts, launches=launches["extras 1M"])
     say("extras_pose", **extras_pose(tmp, app_scene, ds, dev, launches))
+
+    # -- 15. the distributed path ---------------------------------------
+    def dist_kernels_and_programs():
+        with torch.inference_mode():
+            splats = project_gaussians(model_1m, cam0, cfg_1m)
+            demand, cap = dist_strip_capacity(splats, cfg_1m, DIST_SHARDS,
+                                              capacity)
+            strip = dist_strip_kernels(splats, cfg_1m, DIST_SHARDS, cap,
+                                       results, cuda_ms)
+        del splats
+        say("dist_strip_kernels", card=card, strip_demand=demand,
+            pair_capacity_per_shard=cap, **strip)
+        say("dist_1m_frames", card=card, **dist_frames(
+            model_1m, cfg_1m, DIST_SHARDS, cap, cam_1m_host, angles_1m,
+            timer))
+        with torch.inference_mode():
+            tgt = [pipeline.render(model_1m, cam_1m(a), cfg_1m).image
+                   for a in (10.0, 20.0, 30.0)]
+        facts = dist_train_step(model_1m, cfg_train_1m, tc_1m, DIST_SHARDS,
+                                cap, [cam0] * 3, [t.clone() for t in tgt],
+                                timer)
+        say("dist_train_1m", card=card, single_replay_device_ms=step_facts[
+            "1M"]["replay_device_ms"], **facts)
+        del tgt
+        with torch.inference_mode():
+            tgt = [pipeline.render(app_scene.model, c, cfg_tapp).image
+                   for c in cams_t[:DIST_VB_VIEWS]]
+        say("dist_view_batch", card=card, **dist_view_batch(
+            init_app, cfg_tapp, trainer.TrainConfig(scene_extent=extent),
+            cams_t, [t.clone() for t in tgt], timer))
+
+    _, launches["dist"] = counted(cuda_lib, dist_kernels_and_programs)
+    need_launches("distributed 1M and view batch", launches["dist"],
+                  ("coverage_masks", "stream_expand", "rasterize_strict",
+                   "rasterize_relaxed", "rasterize_strict_aux",
+                   "rasterize_bwd"), 1)
+    say("timer", **timer.summary())
+
+    # The apps with --distributed: the app at phase 3's flags (its PNG
+    # equal, every frame a replay), with the UI (the histogram's exchange
+    # overflow 0), and the train CLI sharded with --densify on phase 13's
+    # capture and with --view-batch in distill mode.
+    shards = str(DIST_SHARDS)
+    dist_png = os.path.join(tmp, "app_dist.png")
+    dstats, launches["dist app"] = counted(cuda_lib, lambda: app_main.run([
+        "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
+        "--frames", "8", "--pair-capacity", "0", "--device", "cuda",
+        "--compile-cache", probe_cache, "--output", dist_png,
+        "--distributed", shards, "--log-level", "warn"]))
+    need_exact("app --distributed", launches["dist app"],
+               ("stream_expand", "rasterize_relaxed"),
+               DIST_SHARDS * captured)
+    dist_img = image_util.decode_png(open(dist_png, "rb").read())
+    png_diff = int(np.abs(dist_img.astype(np.int32)
+                          - img.astype(np.int32)).max())
+    if (png_diff or dstats["overflow"] or dstats["exchange_overflow"]
+            or dstats["shards"] != DIST_SHARDS):
+        fail(f"app --distributed {shards}: PNG differs by {png_diff} from "
+             f"the single-device app's, or drops: {dstats}")
+    ui_dist, launches["dist ui"] = counted(cuda_lib, lambda: ui_session(
+        ply_path, probe_cache, os.path.join(tmp, "ui_dist.png"),
+        ("--distributed", shards)))
+    say("dist_app", card=card, shards=DIST_SHARDS, frames=dstats["frames"],
+        pair_capacity=dstats["pair_capacity"], num_pairs=dstats["num_pairs"],
+        png_max_abs_diff=png_diff, overflow=dstats["overflow"],
+        exchange_overflow=dstats["exchange_overflow"],
+        median_frame_ms=dstats["median_ms"], frame_ms=dstats["frame_ms"],
+        single_device_median_frame_ms=stats["median_ms"],
+        capture_s=dstats["capture_seconds"], ui=ui_dist,
+        launches=launches["dist app"])
+    views, n_points = ds["train_views"], ds["sfm_points"]
+    cap_ds = -(-int(EX_PAIR_X * ds["probed_demand"]) // 128) * 128
+    dd, launches["dist densify"] = counted(cuda_lib, lambda: app_train.run([
+        "--dataset", ds["capture_root"], "--holdout-every", str(DS_HOLDOUT),
+        "--exact-tiles", "--pair-capacity", str(cap_ds), "--device", "cuda",
+        "--steps", str(DIST_EPOCHS * views), "--densify", "--densify-from",
+        str(views), "--densify-every", str(views),
+        "--densify-grad-threshold", str(EX_GRAD_THRESHOLD),
+        "--distributed", shards, "--log-level", "warn"]))
+    need_launches("train --distributed --densify", launches["dist densify"],
+                  ("coverage_masks", "stream_expand", "rasterize_strict_aux",
+                   "rasterize_bwd"), captured)
+    xovf = [e["exchange_overflow"] for e in dd["events"]]
+    if (any(drops_of(dd)) or any(xovf) or len(dd["events"]) != DIST_EPOCHS
+            or not dd["events"][-1]["alive"] > n_points
+            or dd["shards"] != DIST_SHARDS):
+        fail(f"train --distributed --densify: drops {drops_of(dd)}, "
+             f"exchange {xovf}, events {dd['events']}")
+    say("dist_train_densify", card=card, shards=DIST_SHARDS,
+        sfm_points=n_points, slots=dd["num_gaussians"], events=dd["events"],
+        epoch_loss=epoch_means("train --distributed --densify",
+                               dd["losses"], views),
+        median_step_ms=float(np.median(dd["step_ms"])),
+        median_pipelined_ms=float(np.median(dd["pipelined_ms"])),
+        holdout_psnr=dd["eval_psnr"], registrations=registrations_of(dd),
+        launches=launches["dist densify"])
+    vb = DIST_VB_MESH[0]
+    dv, launches["dist view batch"] = counted(cuda_lib, lambda: app_train.run(
+        common + ["--steps", str(DIST_EPOCHS * TRAIN_VIEWS), "--distributed",
+                  shards, "--view-batch", str(vb)]))
+    need_launches("train --view-batch", launches["dist view batch"],
+                  ("stream_expand", "rasterize_strict_aux", "rasterize_bwd"),
+                  captured)
+    if any(dv["vb_drops"].values()) or dv["view_batch"] != vb:
+        fail(f"train --view-batch: drops {dv['vb_drops']}")
+    say("dist_train_view_batch", card=card, shards=DIST_SHARDS,
+        view_batch=vb, steps=len(dv["losses"]), drops=dv["vb_drops"],
+        epoch_loss=epoch_means("train --view-batch", dv["losses"],
+                               TRAIN_VIEWS // vb),
+        median_step_ms=float(np.median(dv["step_ms"])),
+        median_pipelined_ms=float(np.median(dv["pipelined_ms"])),
+        psnr=dv["psnr"], launches=launches["dist view batch"])
+    facts, launches["dist processes"] = counted(
+        cuda_lib, lambda: mh_phase(tmp, ply_path, dev))
+    say("dist_processes", card=card, **facts)
     say("timer", **timer.summary())
 
     for name, r in results.items():

@@ -16,6 +16,18 @@ pushed to the viewer (a video frame and the tile histogram, encoded and
 sent on a worker thread while the next frame renders). The last frame is
 written as PNG.
 
+--distributed N renders each frame over a mesh of N shards
+(parallel/distributed.py, the reference's app/main.py:246-285): gaussians
+sharded for projection, splats exchanged by all_to_all, each shard binning
+and compositing its own row strip, the frame equal to the single-device
+one. Every shard gets the full --pair-capacity and exchange buckets of
+2 x N_local rows (an interactive camera may put every splat on one strip),
+the tile counts are cropped to the grid, and exchange overflow joins the
+telemetry and the viewer's histogram. The shards sit round-robin on the
+visible devices of --device's kind (all N on one card share it, and the
+frame is one graph replay). --device points has no sharded program and is
+refused, as in the reference.
+
 The camera is computed on the host each frame and handed to the engine as
 three tensors (view, projection, environment rotation), which it copies
 into the captured program's inputs. (The reference computes the camera
@@ -41,6 +53,8 @@ import torch
 
 from gaussian_splat_ipu_tpu_torch.io.scene import load_scene
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+from gaussian_splat_ipu_tpu_torch.parallel import distributed
+from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
 from gaussian_splat_ipu_tpu_torch.render import points as points_render
 from gaussian_splat_ipu_tpu_torch.render.binning import bin_splats
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
@@ -78,7 +92,9 @@ def parse_args(argv=None):
                         "cpu = their plain torch versions, eagerly; points "
                         "= 1-px point splats on the card")
     p.add_argument("--distributed", type=int, default=0, metavar="N",
-                   help="multi-device rendering; not ported yet")
+                   help="render over a mesh of N shards (> 1), placed "
+                        "round-robin on the visible devices of --device's "
+                        "kind")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--fov", type=float, default=40.0, help="degrees")
@@ -115,11 +131,7 @@ def parse_args(argv=None):
     p.add_argument("--frames-in-flight", type=int, default=2,
                    help="frames queued on the device before the oldest "
                         "is retired (1 = fully synchronous)")
-    args = p.parse_args(argv)
-    if args.distributed > 1:
-        p.error("not ported to the torch package yet: --distributed "
-                "(multi-device rendering)")
-    return args
+    return p.parse_args(argv)
 
 
 def _auto_pair_capacity(scene, width: int, height: int, fov: float,
@@ -213,6 +225,8 @@ class FrameOutput(NamedTuple):
     overflow: torch.Tensor     # () i32 pairs dropped at the capacity
     truncated: torch.Tensor    # () i32 pairs past the per-tile work bound
     count: torch.Tensor        # () i32 live pairs (splat) / points shown
+    exchange_overflow: torch.Tensor  # () i32 splat rows dropped at the
+    #                                  all_to_all buckets (--distributed)
 
 
 def splat_program(cfg: RasterConfig):
@@ -220,7 +234,21 @@ def splat_program(cfg: RasterConfig):
     def splat(model, view, proj, env_rot) -> FrameOutput:
         out = render(model, Camera(view, proj, env_rot), cfg)
         return FrameOutput(out.image, out.tile_counts, out.overflow,
-                           out.truncated, out.num_pairs)
+                           out.truncated, out.num_pairs,
+                           torch.zeros_like(out.overflow))
+    return splat
+
+
+def sharded_program(cfg: RasterConfig, mesh, **kw):
+    """The splat pipeline over a mesh, on a model sharded on it:
+    distributed.render_sharded with the keywords `kw` (capacities, the
+    exchange), its tile counts cropped to the grid."""
+    def splat(model, view, proj, env_rot) -> FrameOutput:
+        out = distributed.render_sharded(model, Camera(view, proj, env_rot),
+                                         cfg, mesh, **kw)
+        return FrameOutput(out.image, out.tile_counts[:cfg.num_tiles],
+                           out.overflow, out.truncated, out.num_pairs,
+                           out.exchange_overflow)
     return splat
 
 
@@ -233,7 +261,7 @@ def points_program(cfg: RasterConfig):
         zero = torch.zeros((), dtype=torch.int32, device=view.device)
         return FrameOutput(out.image,
                            points_render.tile_histogram(model, cam, cfg),
-                           zero, zero, out.count)
+                           zero, zero, out.count, zero)
     return points
 
 
@@ -249,10 +277,13 @@ def orbit_camera(scene, state: dict, aspect: float) -> Camera:
 def run(argv=None) -> dict:
     """The body of main: render the frames and return their statistics —
     frame_ms (device time per frame on CUDA, host time on the CPU), the
-    last frame's overflow, truncated, num_pairs (its FrameOutput.count)
-    and tile_counts, the program it ran and each program's capture
-    seconds."""
+    last frame's overflow, truncated, num_pairs (its FrameOutput.count),
+    exchange_overflow and tile_counts, the program it ran, each program's
+    capture seconds and the mesh's shard count (0 without --distributed)."""
     args = parse_args(argv)
+    if args.distributed > 1 and args.device == "points":
+        raise SystemExit("--distributed requires the splat pipeline "
+                         "(--device cuda or cpu)")
     engine_lib.setup_logging(args.log_level)
     on_cuda = args.device != "cpu"
     if on_cuda:
@@ -292,16 +323,30 @@ def run(argv=None) -> dict:
 
         state = {"fov": fov, "rx": 0.0, "ry": 0.0, "x": 0.0, "y": 0.0,
                  "z": 0.0, "erx": 0.0, "ery": 0.0}
+        mesh, eager = None, ""
+        splat = splat_program(cfg)
+        if args.distributed > 1:
+            mesh = mesh_lib.make_mesh(args.distributed, device=device.type)
+            model = mesh_lib.shard_model(model, mesh)
+            splat = sharded_program(
+                cfg, mesh, pair_capacity=cfg.pair_capacity,
+                exchange_capacity=2 * model.num_gaussians // mesh.size)
+            if mesh.spans_devices:
+                eager = (f"its {mesh.size} shards span "
+                         f"{len(set(mesh.devices))} devices")
+            log.info("distributed: %d shards on %s, %d tile rows each",
+                     mesh.size, sorted({str(d) for d in mesh.devices}),
+                     distributed._rows_per_device(cfg, mesh.size))
         cam0 = orbit_camera(scene, state, aspect)
         # The programs' camera inputs, owned by the engine from here on.
         example = (model, cam0.view.to(device), cam0.proj.to(device),
                    cam0.env_rot.to(device))
-        splat, points = splat_program(cfg), points_program(cfg)
+        points = points_program(cfg)
         # Two switchable programs, as the reference's runtime cpu / ipu
         # device toggle: "project" the splat pipeline, "points" the 1-px
         # positional renderer.
         engine.register("project", points if args.device == "points"
-                        else splat, example)
+                        else splat, example, eager=eager)
         if args.ui_port:
             engine.register("points", points, example)
         log.info("engine ready: %s", engine.manifest())
@@ -321,7 +366,8 @@ def run(argv=None) -> dict:
         interactive = ui is not None and args.frames == 0
         inflight = collections.deque()
         frame_ms = []
-        drops = (0, 0)   # (overflow, truncated) at the telemetry cadence
+        # (overflow, truncated, exchange_overflow) at the telemetry cadence
+        drops = (0, 0, 0)
         last = None
         t_last = None
 
@@ -336,11 +382,13 @@ def run(argv=None) -> dict:
                 frame_ms.append(host_ms)
             now = time.perf_counter()
             if k % _TELEMETRY_EVERY == 0:
-                drops = (int(out.overflow), int(out.truncated))
+                drops = (int(out.overflow), int(out.truncated),
+                         int(out.exchange_overflow))
                 if any(drops):
                     log.warning("frame %d: dropped splat pairs (overflow=%d "
                                 "over --pair-capacity, truncated=%d past the "
-                                "per-tile work bound)", k, *drops)
+                                "per-tile work bound, exchange_overflow=%d "
+                                "at the all_to_all buckets)", k, *drops)
                 log.info("frame %d: %.3f ms %s, %.2f ms since the last "
                          "retire, latency %.1f ms (count %d)", k,
                          frame_ms[-1], "device" if on_cuda else "host",
@@ -359,10 +407,10 @@ def run(argv=None) -> dict:
                     out.tile_counts.cpu().numpy()
 
                 def push(img=img, cnt=cnt, ex=exposure, gm=gamma,
-                         ov=drops[0], tr=drops[1]):
+                         ov=drops[0], tr=drops[1], xo=drops[2]):
                     ui.send_video_frame(img, ex, gm)
                     ui.send_histogram(cnt, overflow=ov, truncated=tr,
-                                      exchange_overflow=0)
+                                      exchange_overflow=xo)
 
                 ui_task.run(push)
 
@@ -420,6 +468,8 @@ def run(argv=None) -> dict:
                      overflow=int(last.overflow),
                      truncated=int(last.truncated),
                      num_pairs=int(last.count),
+                     exchange_overflow=int(last.exchange_overflow),
+                     shards=mesh.size if mesh is not None else 0,
                      tile_counts=last.tile_counts.cpu().numpy(),
                      pair_capacity=cfg.pair_capacity, program=program,
                      capture_seconds={k: p.compile_seconds

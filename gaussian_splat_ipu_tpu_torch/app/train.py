@@ -1,5 +1,5 @@
 """Training application: fit gaussian parameters to target views (torch
-port of the single-device paths of gaussian_splat_ipu_tpu/app/train.py).
+port of gaussian_splat_ipu_tpu/app/train.py).
 
     python -m gaussian_splat_ipu_tpu_torch.app.train --input scene.ply \\
         --steps 200 --views 8 [--mode distill|self] [--device cuda]
@@ -46,6 +46,22 @@ Training extras, with the reference's defaults and composition rules:
                      uploads them N views at a time as one (N, H, W, C)
                      device tensor, the last short piece wrapping in the
                      epoch's first views, as the reference's.
+  --distributed [N]  sharded training over a mesh (parallel/distributed.py):
+                     alone, one shard per visible device of --device's kind
+                     (so one card, or the CPU, trains on the single-device
+                     path, as the reference does on one chip); with N, N
+                     shards, placed round-robin on those devices (N shards
+                     on one card share it). Steps one view at a time, as
+                     the reference's sharded program; with --densify, the
+                     sharded densify step in whole epochs, the event on the
+                     whole slot buffer, --auto-grow padding each shard's
+                     slice, and the pair-demand guard against the summed
+                     per-shard budgets. Pose, exposure and depth are
+                     single-device only (ignored with a warning).
+  --view-batch V     with --distributed and without --densify: V views a
+                     step on a (V, N / V) view x shard mesh, the loss their
+                     mean; V must divide N. The drop counters of every step
+                     are summed and logged (warned about as they occur).
 
 Each step is one replay of a train program captured as a CUDA graph
 (runtime/engine.RenderEngine; trainer, densify or aux_opt register_step)
@@ -73,12 +89,15 @@ import torch
 
 from gaussian_splat_ipu_tpu_torch.app.eval import (flatten_rgba,
                                                    load_frames, select_split)
-from gaussian_splat_ipu_tpu_torch.app.main import splat_program
+from gaussian_splat_ipu_tpu_torch.app.main import (sharded_program,
+                                                   splat_program)
 from gaussian_splat_ipu_tpu_torch.io import colmap as colmap_lib
 from gaussian_splat_ipu_tpu_torch.io import splat as splat_io
 from gaussian_splat_ipu_tpu_torch.io.scene import load_scene
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_ipu_tpu_torch.parallel import distributed
+from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.train import (appearance, aux_opt,
@@ -92,23 +111,18 @@ log = logging.getLogger("gsplat")
 
 _STEPS_IN_FLIGHT = 2     # steps queued on the device before one retires
 _RENDER = "render"       # the engine's render program
+_PROBE = "probe"         # the sharded pair-demand probe (--densify)
+_VB_STEP = "view_batch_step"  # the --view-batch step program
 _ORDER_SEED = 0xC0FFEE   # the reference's visit-order generator
 _PROBE_SHARE = 0.8       # stop densifying above this share of the capacity
 _GROW_SHARE = 0.9        # --auto-grow above this share of the slots alive
-
-# Flags of the reference CLI that this port does not carry yet: (dest,
-# the value that means "off", what it is, the ROADMAP.md queue-1 item).
-_UNPORTED = (
-    ("distributed", False, "--distributed (sharded training)",
-     "Distributed path"),
-    ("view_batch", 0, "--view-batch (view-parallel training)",
-     "Distributed path"),
-)
+_VB_KEEP = 4             # view-batch steps whose counters stay unread
 
 
 def parse_args(argv=None):
     """The reference CLI's flags, same defaults, plus --device and --seed;
-    the ones this port does not carry are refused."""
+    --distributed also takes a shard count. A multi-process run (the
+    reference's GSPLAT_COORDINATOR environment) is refused."""
     p = argparse.ArgumentParser(
         description="CUDA gaussian splat trainer (PyTorch port)")
     p.add_argument("--input", default="", help="PLY/XYZ/.splat scene")
@@ -197,10 +211,14 @@ def parse_args(argv=None):
     p.add_argument("--export-splat", default="",
                    help="write the trained scene as a web-viewer .splat "
                         "(u8-quantised)")
-    p.add_argument("--distributed", action="store_true",
-                   help="not ported yet")
+    p.add_argument("--distributed", type=int, nargs="?", const=-1,
+                   default=0, metavar="N",
+                   help="sharded training: one shard per visible device of "
+                        "--device's kind, or N shards round-robin on them")
     p.add_argument("--view-batch", type=int, default=0,
-                   help="not ported yet")
+                   help="--distributed: also split each step's views over "
+                        "a (view, shard) mesh, this many views a step (it "
+                        "must divide the shard count)")
     p.add_argument("--densify", action="store_true",
                    help="adaptive density control (split / clone / prune)")
     p.add_argument("--capacity", type=int, default=0,
@@ -215,21 +233,19 @@ def parse_args(argv=None):
                         "(the programs are registered again) instead of "
                         "dropping the lowest-priority births")
     args = p.parse_args(argv)
-    unported = [f"{what} (ROADMAP.md queue 1, {item})"
-                for dest, off, what, item in _UNPORTED
-                if getattr(args, dest) != off]
-    if unported:
-        p.error("not ported to the torch package yet: "
-                + "; ".join(unported))
+    if os.environ.get("GSPLAT_COORDINATOR"):
+        p.error("not ported to the torch package yet: a multi-process run "
+                "(GSPLAT_COORDINATOR is set; ROADMAP.md queue 1, Distributed "
+                "path: multi-process training)")
     if not args.input and not args.dataset:
         p.error("one of --input / --dataset is required")
     return args
 
 
-def render_views(engine, model, cameras) -> list:
-    """One replay of the render program per camera (eager on the CPU):
-    the FrameOutputs."""
-    return [engine.run(_RENDER, model, c.view, c.proj, c.env_rot)
+def render_views(engine, model, cameras, program: str = _RENDER) -> list:
+    """One replay of a render program per camera (eager on the CPU): the
+    FrameOutputs."""
+    return [engine.run(program, model, c.view, c.proj, c.env_rot)
             for c in cameras]
 
 
@@ -240,8 +256,9 @@ def run(argv=None) -> dict:
     _STEPS_IN_FLIGHT queued); every program registration (program, step,
     the SH degree it renders, -1 for every band, slots, capture seconds,
     the allocator's reserved bytes after it); with --densify each event
-    (step, alive count, pair demand and overflow of the probe, event ms)
-    and the final alive count;
+    (step, alive count, pair demand, overflow and exchange overflow of the
+    probe, event ms) and the final alive count; the shard count, the view
+    batch and its summed drop counters;
     the learned pose deltas and exposure maps; the overflow and truncation
     of the target renders (--input) or of the initial model's render of
     each training view (--dataset) and of the final render, the holdout
@@ -335,6 +352,38 @@ def run(argv=None) -> dict:
                        antialias=args.antialias, tile_group=args.tile_group,
                        rowseg_buckets=args.rowseg, background=(bg, bg, bg))
     check_supported(cfg)
+    # The mesh: --distributed alone takes one shard per visible device
+    # (the reference's jax.devices()); one shard is the single-device path.
+    shards = (args.distributed if args.distributed > 0
+              else mesh_lib.visible_device_count(device.type)
+              if args.distributed < 0 else 1)
+    use_dist = shards > 1
+    if args.view_batch > 1 and (not use_dist or args.densify):
+        log.warning("--view-batch needs --distributed without --densify; "
+                    "ignoring")
+        args.view_batch = 0
+    if args.view_batch > 1 and shards % args.view_batch:
+        raise SystemExit("--view-batch must divide the shard count "
+                         f"({shards})")
+    if args.depth_loss > 0 and use_dist:
+        log.warning("--depth-loss needs the single-device path; ignoring")
+        args.depth_loss = 0.0
+    mesh, eager = None, ""
+    probe_capacity = cfg.pair_capacity
+    if use_dist:
+        probe_capacity = distributed.default_pair_budget(cfg, shards) * shards
+        mesh = (mesh_lib.make_mesh_2d(args.view_batch,
+                                      shards // args.view_batch,
+                                      device=device.type)
+                if args.view_batch > 1
+                else mesh_lib.make_mesh(shards, device=device.type))
+        if mesh.spans_devices:
+            eager = (f"its {mesh.size} shards span "
+                     f"{len(set(mesh.devices))} devices")
+        log.info("distributed over %d shards on %s%s", shards,
+                 sorted({str(d) for d in mesh.devices}),
+                 f" (view batch {args.view_batch})"
+                 if args.view_batch > 1 else "")
     if not args.dataset:
         log.info("rendering %d target views at %dx%d from %d gaussians",
                  args.views, args.width, args.height, scene.num_gaussians)
@@ -389,9 +438,9 @@ def run(argv=None) -> dict:
                              scene_extent=extent)
 
     # --pose-opt / --exposure-opt compose with --depth-loss in one aux
-    # step; density control takes neither.
+    # step; density control and the sharded steps take neither.
     for flag in ("pose_opt", "exposure_opt"):
-        if getattr(args, flag) > 0 and args.densify:
+        if getattr(args, flag) > 0 and (args.densify or use_dist):
             log.warning("--%s needs the single-device non-densify path; "
                         "ignoring", flag.replace("_", "-"))
             setattr(args, flag, 0.0)
@@ -410,6 +459,9 @@ def run(argv=None) -> dict:
     if args.densify:
         n0 = model.num_gaussians
         capacity = args.capacity or 2 * n0
+        if args.distributed:
+            # The slot buffer splits evenly over the shards.
+            capacity = -(-capacity // shards) * shards
         gscale = 1.0
         if args.ssim_weight > 0.0:
             # The threshold is calibrated on L1: normalise it by the
@@ -431,6 +483,9 @@ def run(argv=None) -> dict:
             densify.pad_model(model, capacity).trainable(), tc)
         log.info("density control on: %d init gaussians, capacity %d", n0,
                  capacity)
+    elif use_dist:
+        state = trainer.init_state(
+            mesh_lib.shard_model(model, mesh).trainable(), tc)
     else:
         state = trainer.init_state(model.trainable(), tc)
     if args.resume:
@@ -442,6 +497,9 @@ def run(argv=None) -> dict:
                                                        (state, aux))
         else:
             state = checkpoint.restore_checkpoint(args.resume, state)
+        if use_dist and state.params.num_gaussians % shards:
+            raise SystemExit("--resume --distributed needs a checkpoint whose "
+                             f"gaussian count divides the {shards} shards")
         log.info("resumed from %s at step %d", args.resume, int(state.step))
 
     # The programs, registered after any resume (a graph updates the
@@ -470,9 +528,28 @@ def run(argv=None) -> dict:
         return prog
 
     def register_render():
-        registered(engine.register(_RENDER, splat_program(cfg), (
-            state.params, cam0.view.clone(), cam0.proj.clone(),
-            cam0.env_rot.clone())), -1)
+        example = (state.params, cam0.view.clone(), cam0.proj.clone(),
+                   cam0.env_rot.clone())
+        registered(engine.register(_RENDER, splat_program(cfg), example), -1)
+        if use_dist and args.densify:
+            # The pair-demand probe renders sharded, at the shards' own
+            # budgets (distributed.default_pair_budget), as the
+            # reference's densify guard does.
+            registered(engine.register(_PROBE, sharded_program(cfg, mesh),
+                                       example, eager=eager), -1)
+
+    # The view-batch steps' views: the training views cycled to a whole
+    # number of batches, as the reference's.
+    vb_groups = []
+    if args.view_batch > 1:
+        idxs = list(range(args.views))
+        idxs += idxs[:(-len(idxs)) % args.view_batch]
+        vb_groups = [idxs[g:g + args.view_batch]
+                     for g in range(0, len(idxs), args.view_batch)]
+
+    def vb_args(sel):
+        return (state, tuple(cameras[k] for k in sel),
+                torch.stack([target_of(k) for k in sel]))
 
     def register_step():
         acfg = (cfg if active_sh < 0 else
@@ -481,7 +558,23 @@ def run(argv=None) -> dict:
         if args.densify:
             prog = densify.register_step(
                 engine, state, dstate, cam0, target0, acfg, tc, depth_weight,
-                vi, obs_all, mask_all)
+                vi, obs_all, mask_all,
+                step_fn=(distributed.make_sharded_densify_train_step(
+                    mesh, acfg, tc) if use_dist else None), eager=eager)
+        elif args.view_batch > 1:
+            _, cams, tgts = vb_args(vb_groups[0])
+            step = distributed.make_view_batch_train_step(
+                mesh, acfg, tc, pair_capacity=args.pair_capacity)
+            prog = engine.register(_VB_STEP, step, (
+                state, tuple(trainer.static_copies(c, tgts)[0]
+                             for c in cams), tgts.clone()),
+                grad=True, eager=eager)
+        elif use_dist:
+            prog = trainer.register_step(
+                engine, state, cam0, target0, acfg, tc,
+                step_fn=distributed.make_sharded_train_step(
+                    mesh, acfg, tc, pair_capacity=args.pair_capacity),
+                eager=eager)
         elif step_aux is not None:
             prog = aux_opt.register_step(
                 engine, state, step_aux, vi, cam0, target0, obs_all,
@@ -532,14 +625,19 @@ def run(argv=None) -> dict:
             pipelined.append((now - t_last) * 1e3)
         t_last = now
 
-    def run_step(k, target):
+    def launch(*step_in):
+        """Run the step program once; the loss (and with --view-batch its
+        drop counters) stays on the device."""
         if on_cuda:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         else:
             ev = time.perf_counter()
-        loss = engine.run(step_prog.name, *step_args(k, target))
+        loss = engine.run(step_prog.name, *step_in)
+        if args.view_batch > 1:
+            loss, drops = loss
+            vb_pending.append(drops)
         if on_cuda:
             ev[1].record()
         else:
@@ -550,12 +648,45 @@ def run(argv=None) -> dict:
         if len(inflight) >= _STEPS_IN_FLIGHT:
             retire()
 
+    def run_step(k, target):
+        launch(*step_args(k, target))
+
+    # View-batch drop counters: each step's (exchange_overflow, overflow,
+    # truncated) stays on the device until it is _VB_KEEP steps old (or a
+    # log line is due), then joins the run's sums; drops warn as they
+    # surface, since they corrupt that step's gradients.
+    vb_names = ("exchange_overflow", "overflow", "truncated")
+    vb_drops = dict.fromkeys(vb_names, 0)
+    vb_pending = []
+
+    def drain_vb(step_i, keep=0):
+        since = dict.fromkeys(vb_names, 0)
+        while len(vb_pending) > keep:
+            for name, v in zip(vb_names, vb_pending.pop(0).tolist()):
+                since[name] += v
+        for name, v in since.items():
+            vb_drops[name] += v
+        if any(since.values()):
+            log.warning("view-batch drops by step %d: %s since last check "
+                        "(run totals %s): dropped pairs corrupt gradients; "
+                        "raise --pair-capacity", step_i, since, vb_drops)
+
     order_rng = np.random.default_rng(_ORDER_SEED)
 
     def view_order():
         """An epoch's visit order: a fresh permutation under --shuffle."""
         return (order_rng.permutation(args.views) if args.shuffle
                 else np.arange(args.views))
+
+    step_order = list(range(args.views))
+
+    def next_step_index(i):
+        """The sharded step's view: the reference steps it one view at a
+        time, the order shuffled in place at each epoch boundary."""
+        k = i % args.views
+        if k == 0 and args.shuffle:
+            order_rng.shuffle(step_order)
+        return step_order[k]
 
     def run_epoch():
         """One epoch in pieces of chunk_views (the last wraps the epoch's
@@ -588,9 +719,18 @@ def run(argv=None) -> dict:
             step_prog = register_step()
             log.info("SH schedule: active degree -> %d at step %d",
                      active_sh, i)
-        if args.densify or args.steps - i >= args.views:
+        if args.densify or (not use_dist and args.steps - i >= args.views):
             run_epoch()
             i += args.views
+        elif args.view_batch > 1:
+            launch(*vb_args(vb_groups[(i // args.view_batch)
+                                      % len(vb_groups)]))
+            drain_vb(i, keep=_VB_KEEP)
+            i += args.view_batch
+        elif use_dist:
+            k = next_step_index(i)
+            run_step(k, target_of(k))
+            i += 1
         else:
             # The last partial epoch, one step at a time.
             if i % args.views == 0:
@@ -616,27 +756,35 @@ def run(argv=None) -> dict:
                 else:
                     event_ms = (time.perf_counter() - ev_t) * 1e3
                 # Guard the pair budget over every training view: dropped
-                # pairs corrupt gradients, so stop growing first.
-                probe = render_views(engine, state.params, cameras)
+                # pairs corrupt gradients, so stop growing first. Sharded,
+                # the global demand against the summed per-shard budgets
+                # (counted overflow catches a single hot shard).
+                probe = render_views(engine, state.params, cameras,
+                                     _PROBE if use_dist else _RENDER)
                 demand = max(int(o.count + o.overflow) for o in probe)
                 ovf = max(int(o.overflow) for o in probe)
+                xovf = max(int(o.exchange_overflow) for o in probe)
                 del probe
                 if ovf > 0:
                     log.warning("pair overflow (%d dropped): raise "
                                 "--pair-capacity", ovf)
-                if demand > int(_PROBE_SHARE * cfg.pair_capacity):
+                if demand > int(_PROBE_SHARE * probe_capacity):
                     densify_open = False
                     log.info("pair demand %d near capacity %d: no further "
-                             "densification", demand, cfg.pair_capacity)
+                             "densification", demand, probe_capacity)
                 alive_now = int(torch.sum(dstate.alive))
                 slots = state.params.num_gaussians
                 events.append(dict(step=i, alive=alive_now, demand=demand,
-                                   overflow=ovf, event_ms=event_ms,
-                                   slots=slots))
+                                   overflow=ovf, exchange_overflow=xovf,
+                                   event_ms=event_ms, slots=slots))
                 if (args.auto_grow and densify_open
                         and alive_now > int(_GROW_SHARE * slots)):
-                    state, dstate = densify.grow_capacity(state, dstate,
-                                                          2 * slots)
+                    if use_dist:
+                        state, dstate = distributed.grow_capacity_sharded(
+                            mesh, state, dstate, 2 * slots)
+                    else:
+                        state, dstate = densify.grow_capacity(state, dstate,
+                                                              2 * slots)
                     register_render()
                     step_prog = register_step()
                     log.info("slot buffer grown to %d (programs registered "
@@ -653,8 +801,13 @@ def run(argv=None) -> dict:
                 densify.reset_opacity(state, dstate, c)
         if (i // args.views) % 10 == 0 or i >= args.steps:
             log.info("step %d: loss %.5f", i, float(loss_t[-1]))
+            drain_vb(i)
     while inflight:
         retire()
+    drain_vb(i)
+    if any(vb_drops.values()):
+        log.warning("view-batch drop totals over the run: %s: raise "
+                    "--pair-capacity", vb_drops)
     if on_cuda:
         torch.cuda.synchronize(device)
         step_ms = [a.elapsed_time(b) for a, b in marks]
@@ -715,6 +868,8 @@ def run(argv=None) -> dict:
     tail = f" eval_psnr={eval_psnr:.2f}" if eval_psnr is not None else ""
     print(f"final_loss={final_loss:.6f} psnr={psnr:.2f}{tail}")
     return dict(losses=losses_h, step_ms=step_ms, pipelined_ms=pipelined,
+                shards=shards if use_dist else 1,
+                view_batch=args.view_batch, vb_drops=vb_drops,
                 capture_seconds=step_prog.compile_seconds,
                 registrations=registrations, events=events,
                 final_loss=final_loss, psnr=psnr, eval_psnr=eval_psnr,

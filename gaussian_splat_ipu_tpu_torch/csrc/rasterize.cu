@@ -15,7 +15,10 @@
 // alpha = min(alpha_clamp, op * exp(power)); skipped when power > 0 or
 // alpha < alpha_min. Work per range is capped at max_pairs; pixel centres
 // sit at integer coordinates; the background is added with weight T and
-// the alpha channel is 1 - T.
+// the alpha channel is 1 - T. The ranges may be those of a row strip of the
+// grid (the distributed renderer): local tile t lies at global flat id
+// tile_offset + t, which places its pixels; starts, ends and the outputs are
+// indexed by t.
 //   strict:  a pixel stops before blending the first pair with
 //            T * (1 - alpha) < eps; its T freezes there.
 //   relaxed: a pair is blended only when T * (1 - alpha) >= eps, but T
@@ -67,14 +70,16 @@ template <int kMode, int kPpt>
 __global__ void __launch_bounds__(kMaxThreads)
 rasterize_fwd_kernel(const float* __restrict__ feats, int p,
                      const int* __restrict__ starts,
-                     const int* __restrict__ ends, int tiles_x, int tile_w,
-                     int tile_h, int ww, int chunk, int max_pairs, float eps,
+                     const int* __restrict__ ends, int tile_offset,
+                     int tiles_x, int tile_w, int tile_h, int ww, int chunk,
+                     int max_pairs, float eps,
                      float alpha_clamp, float alpha_min, float bg0, float bg1,
                      float bg2, float4* __restrict__ out,
                      float* __restrict__ nc) {
   constexpr bool kRelaxed = kMode == kRelaxedMode;
   extern __shared__ __align__(16) char smem[];
-  const int tid = blockIdx.x;  // flat tile id of the whole grid
+  const int tid = blockIdx.x;          // local tile: ranges and outputs
+  const int gtid = tid + tile_offset;  // global flat tile id: pixels
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int lpc = 32 / ww;         // lanes per column
@@ -83,8 +88,8 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int p,
   const int wy0 = (warp / (tile_w / ww)) * wh;
   const int lx = wx0 + lane % ww;
   const int ly0 = wy0 + lane / ww;  // pixel k sits at row ly0 + k * lpc
-  const float tx0 = (float)((tid % tiles_x) * tile_w);
-  const float ty0 = (float)((tid / tiles_x) * tile_h);
+  const float tx0 = (float)((gtid % tiles_x) * tile_w);
+  const float ty0 = (float)((gtid / tiles_x) * tile_h);
   const float px = tx0 + (float)lx;
   float py[kPpt];
 #pragma unroll
@@ -190,7 +195,7 @@ rasterize_fwd_kernel(const float* __restrict__ feats, int p,
 }
 
 using Kernel = void (*)(const float*, int, const int*, const int*, int, int,
-                        int, int, int, int, float, float, float, float,
+                        int, int, int, int, int, float, float, float, float,
                         float, float, float4*, float*);
 
 template <int kMode>
@@ -202,13 +207,15 @@ Kernel pick(int ppt) {
 }  // namespace
 
 // mode: 0 strict, 1 relaxed, 2 strict + contributor count into nc (which
-// the other modes leave unread and may be null). The tile and chunk must
+// the other modes leave unread and may be null). tile_offset: the global
+// flat id of local tile 0. The tile and chunk must
 // admit a layout (raster_stage.cuh: choose_layout), else
 // cudaErrorInvalidConfiguration.
 extern "C" int gsplat_rasterize_fwd(const float* feats, int p,
                                     const int* starts, const int* ends,
-                                    int num_tiles, int tiles_x,
-                                    int tile_w, int tile_h, int chunk,
+                                    int num_tiles, int tile_offset,
+                                    int tiles_x, int tile_w, int tile_h,
+                                    int chunk,
                                     int max_pairs, float eps,
                                     float alpha_clamp, float alpha_min,
                                     float bg0, float bg1, float bg2,
@@ -228,7 +235,8 @@ extern "C" int gsplat_rasterize_fwd(const float* feats, int p,
     if (e != cudaSuccess) return (int)e;
   }
   fn<<<num_tiles, lay.threads, smem, (cudaStream_t)stream>>>(
-      feats, p, starts, ends, tiles_x, tile_w, tile_h, lay.ww, chunk,
+      feats, p, starts, ends, tile_offset, tiles_x, tile_w, tile_h, lay.ww,
+      chunk,
       max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2,
       reinterpret_cast<float4*>(out), nc);
   return (int)cudaGetLastError();

@@ -7,6 +7,10 @@
 // gaussian_splat_ipu_tpu_torch/render/tile_raster.py::
 // rasterize_backward_torch.
 //
+// Local tile t lies at global flat id tile_offset + t (a row strip of the
+// distributed renderer), which places its pixels; ranges, gout, t_n and nc
+// are indexed by t.
+//
 // Inputs: the pair table, the tile ranges, the cotangent gout (T, NPIX, 4)
 // of the tile buffers, and what the strict forward saved: t_n = 1 - alpha
 // and the contributor count nc, both (T, NPIX) f32. Per pixel, walking
@@ -84,7 +88,9 @@ __host__ __device__ inline size_t bwd_smem_bytes(int chunk, int warps) {
 }
 
 // True when a neighbouring tile composites the same non-empty range (the
-// member tiles of a tile group).
+// member tiles of a tile group). On local ids: starts and ends are the
+// strip's, and a strip is whole tile rows (tile_offset a multiple of
+// tiles_x), so the local column is the global one.
 __device__ bool range_is_shared(const int* __restrict__ starts,
                                 const int* __restrict__ ends, int tid,
                                 int tiles_x, int num_tiles) {
@@ -111,8 +117,9 @@ rasterize_bwd_kernel(const float* __restrict__ feats, int p,
                      const int* __restrict__ ends,
                      const float4* __restrict__ gout,
                      const float* __restrict__ t_n,
-                     const float* __restrict__ nc, int tiles_x, int tile_w,
-                     int tile_h, int ww, int chunk, int max_pairs,
+                     const float* __restrict__ nc, int tile_offset,
+                     int tiles_x, int tile_w, int tile_h, int ww, int chunk,
+                     int max_pairs,
                      float alpha_clamp, float alpha_min, float bg0, float bg1,
                      float bg2, float* __restrict__ dfeat) {
   extern __shared__ __align__(16) char smem[];
@@ -123,7 +130,8 @@ rasterize_bwd_kernel(const float* __restrict__ feats, int p,
   unsigned* const used_mask =
       reinterpret_cast<unsigned*>(acc + (size_t)nwarps * kSums * chunk);
 
-  const int tid = blockIdx.x;
+  const int tid = blockIdx.x;          // local tile: ranges and buffers
+  const int gtid = tid + tile_offset;  // global flat tile id: pixels
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int lpc = 32 / ww;
@@ -132,8 +140,8 @@ rasterize_bwd_kernel(const float* __restrict__ feats, int p,
   const int wy0 = (warp / (tile_w / ww)) * wh;
   const int lx = wx0 + lane % ww;
   const int ly0 = wy0 + lane / ww;
-  const float tx0 = (float)((tid % tiles_x) * tile_w);
-  const float ty0 = (float)((tid / tiles_x) * tile_h);
+  const float tx0 = (float)((gtid % tiles_x) * tile_w);
+  const float ty0 = (float)((gtid / tiles_x) * tile_h);
   const float px = tx0 + (float)lx;
   const float wrx0 = tx0 + (float)wx0, wrx1 = wrx0 + (float)(ww - 1);
   const float wry0 = ty0 + (float)wy0, wry1 = wry0 + (float)(wh - 1);
@@ -306,19 +314,21 @@ rasterize_bwd_kernel(const float* __restrict__ feats, int p,
 
 using Kernel = void (*)(const float*, int, const int*, const int*,
                         const float4*, const float*, const float*, int, int,
-                        int, int, int, int, float, float, float, float, float,
-                        float*);
+                        int, int, int, int, int, float, float, float, float,
+                        float, float*);
 
 }  // namespace
 
 // dfeat must hold zeros on entry; gout is (T, NPIX) float4, t_n and nc
-// (T, NPIX) f32. The tile and chunk must admit a layout (raster_stage.cuh:
+// (T, NPIX) f32; tile_offset is the global flat id of local tile 0. The
+// tile and chunk must admit a layout (raster_stage.cuh:
 // choose_layout), else cudaErrorInvalidConfiguration.
 extern "C" int gsplat_rasterize_bwd(const float* feats, int p,
                                     const int* starts, const int* ends,
                                     const float* gout, const float* t_n,
                                     const float* nc, int num_tiles,
-                                    int tiles_x, int tile_w, int tile_h,
+                                    int tile_offset, int tiles_x,
+                                    int tile_w, int tile_h,
                                     int chunk, int max_pairs,
                                     float alpha_clamp, float alpha_min,
                                     float bg0, float bg1, float bg2,
@@ -338,7 +348,7 @@ extern "C" int gsplat_rasterize_bwd(const float* feats, int p,
   }
   fn<<<num_tiles, lay.threads, smem, (cudaStream_t)stream>>>(
       feats, p, starts, ends, reinterpret_cast<const float4*>(gout), t_n, nc,
-      tiles_x, tile_w, tile_h, lay.ww, chunk, max_pairs, alpha_clamp,
-      alpha_min, bg0, bg1, bg2, dfeat);
+      tile_offset, tiles_x, tile_w, tile_h, lay.ww, chunk, max_pairs,
+      alpha_clamp, alpha_min, bg0, bg1, bg2, dfeat);
   return (int)cudaGetLastError();
 }

@@ -73,7 +73,12 @@ def load_scene(path: str, center: bool = True, flip_z: bool = True,
 
 
 def write_ply(path: str, model: GaussianModel) -> None:
-    """Write the model as a standard 3DGS binary PLY (f_dc + f_rest
+    """Write the model as a standard 3DGS binary PLY."""
+    ply_io.write_ply(path, gaussian_columns(model))
+
+
+def gaussian_columns(model: GaussianModel) -> dict:
+    """The model's standard 3DGS PLY columns, in file order (f_dc + f_rest
     channel-major, opacity and scales raw, quats w-first)."""
     p = model.to_numpy()
     cols = {"x": p["means"][:, 0], "y": p["means"][:, 1],
@@ -88,4 +93,4 @@ def write_ply(path: str, model: GaussianModel) -> None:
         cols[f"scale_{i}"] = p["log_scales"][:, i]
     for i in range(4):
         cols[f"rot_{i}"] = p["quats"][:, i]
-    ply_io.write_ply(path, cols)
+    return cols

@@ -1,0 +1,514 @@
+"""Distributed rendering and training over a shard mesh (torch port of
+gaussian_splat_ipu_tpu/parallel/distributed.py).
+
+The design is the reference's, one mesh axis in two roles:
+
+  1. Projection is data-parallel over gaussians: shard j projects its
+     contiguous N / D slice of the sharded model (parallel/mesh.py).
+  2. The exchange is a per-destination all_to_all of compact projected
+     splats (12 f32 each: position, depth, conic, colour, opacity, radius):
+     each shard routes every splat it projected only to the shards whose
+     framebuffer row strips the splat's footprint touches, through
+     fixed-capacity per-destination buckets, and counts the rows a bucket
+     could not take (`exchange_overflow`). The received rows are in global
+     gaussian order, so the stable pair sort gives every tile the
+     single-device pair order and the frame equals the single-device one.
+     The autograd transpose of the routing gather and the all_to_all is
+     the inverse all_to_all and an index-add, so splat gradients land on
+     the owning shard. `exchange="all_gather"` replicates every splat
+     instead.
+  3. Rasterization is spatially parallel over tile rows: shard j bins only
+     its own strip (render/binning.py row_lo / num_rows) and composites it
+     with kernel C at the strip's tile offset (kernel D under grad).
+
+The shard body is written once over the mesh's shard group and calls only
+its collectives (mesh.ShardGroup: all_to_all, all_gather, psum, gather),
+which on a one-device mesh are index, reshape and cat operations on one
+stream: the whole sharded frame, or train step, can then be captured as
+one CUDA graph (runtime/engine.py), as the single-device ones are. Nothing
+here reads a value back to the host: bucket sizes are fixed and the
+bucket bounds come from a device searchsorted.
+
+Training (make_sharded_train_step, make_view_batch_train_step,
+make_sharded_densify_train_step) differentiates these renders. On a mesh
+held by one process the sharded parameters are one tensor per field (their
+D slices side by side), so the optimizer, the density event and the
+opacity reset run on the whole slot buffer as the reference's global
+surgery does (its :565-567), and `grow_capacity_sharded` pads each
+shard's slice with dead slots (:485-549).
+
+One deliberate difference: `truncated` counts the pairs past the per-range
+work bound max_chunks_per_range * chunk_size once per tile group, as the
+single-device render counts them (render/pipeline.py); the reference's
+sharded programs count every member tile against the per-tile bound
+(:302-304), which overcounts grouped strips.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
+                                                          GaussianModel)
+from gaussian_splat_ipu_tpu_torch.parallel.mesh import (SHARD_AXIS,
+                                                       VIEW_AXIS, Mesh,
+                                                       ShardGroup)
+from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
+from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
+from gaussian_splat_ipu_tpu_torch.render.projection import (ProjectedSplats,
+                                                            project_gaussians)
+from gaussian_splat_ipu_tpu_torch.train import densify as densify_lib
+from gaussian_splat_ipu_tpu_torch.train import losses, trainer
+from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+
+I32 = torch.int32
+EXCHANGES = ("all_to_all", "all_gather")
+
+
+class ShardedRenderOutput(NamedTuple):
+    image: torch.Tensor        # (H, W, 4) f32
+    tile_counts: torch.Tensor  # (rows * D * tiles_x,) i32, phantom rows too
+    overflow: torch.Tensor     # () i32 pairs dropped, summed over shards
+    num_pairs: torch.Tensor    # () i32 pairs kept, summed over shards
+    visible: torch.Tensor      # (N,) bool frustum mask, shard order
+    truncated: torch.Tensor    # () i32 pairs past the per-range work bound
+    exchange_overflow: torch.Tensor  # () i32 splat rows dropped at the
+    #                                  all_to_all buckets (0 for all_gather)
+
+
+# -- packed projected-splat wire format ------------------------------------
+
+def _pack_splats(sp: ProjectedSplats) -> torch.Tensor:
+    """(n, 12) wire rows. The radius rides detached: binning reads it only
+    as integer footprints, so it has no gradient on the single-device
+    path either, and a zero cotangent sent back through its torch.where
+    would turn the infinite extents of culled slots into NaN gradients
+    (the reference's sharded step writes NaN into dead slots so)."""
+    return torch.cat([sp.xy, sp.depth[:, None], sp.conic, sp.color,
+                      sp.opacity[:, None], sp.radius.detach()], dim=-1)
+
+
+def _unpack_splats(f: torch.Tensor) -> ProjectedSplats:
+    return ProjectedSplats(xy=f[:, 0:2], depth=f[:, 2], conic=f[:, 3:6],
+                           color=f[:, 6:9], opacity=f[:, 9],
+                           radius=f[:, 10:12])
+
+
+def _rows_per_device(cfg: RasterConfig, num_devices: int) -> int:
+    """Tile rows per shard, rounded up to a multiple of tile_group so every
+    strip covers whole group rows; the last shard's rows past the grid are
+    phantom (bin_splats bins nothing there)."""
+    rows = -(-cfg.tiles_y // num_devices)
+    g = cfg.tile_group
+    return -(-rows // g) * g
+
+
+def _dest_strip_span(sp: ProjectedSplats, cfg: RasterConfig, rows: int):
+    """The destination shards [dest_lo, dest_lo + span) of each splat: the
+    strips its tile footprint's rows fall in; span 0 for culled splats."""
+    _, y0, nx, ny = binning.tile_ranges_of(sp, cfg)
+    dest_lo = y0 // rows
+    dest_hi = (y0 + torch.clamp_min(ny, 1) - 1) // rows
+    span = torch.where((nx > 0) & (ny > 0), dest_hi - dest_lo + 1, 0)
+    return dest_lo.to(I32), span.to(I32)
+
+
+class _RouteGather(torch.autograd.Function):
+    """send = packed_ext[idx], packed_ext the splat rows with a zero row
+    appended; differentiable in `packed`. The transpose sums, for each
+    splat, the cotangents of its (at most d) send rows: pos maps each
+    (splat, destination) pair, in splat order, to its send row (or to a
+    zero row when it was dropped), so the backward is d gathers and adds,
+    with no atomics and no scatter onto the pad row that most send rows
+    point at."""
+
+    @staticmethod
+    def forward(ctx, packed, idx, pos, offsets, span, d):
+        ctx.save_for_backward(pos, offsets, span)
+        ctx.d = d
+        return torch.cat([packed, packed.new_zeros((1, packed.shape[1]))]
+                         )[idx]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsend):
+        pos, offsets, span = ctx.saved_tensors
+        p = pos.shape[0]
+        zero = dsend.new_zeros((1, dsend.shape[1]))
+        dpair = torch.cat([torch.cat([dsend, zero])[pos], zero])
+        dpacked = dsend.new_zeros((offsets.shape[0], dsend.shape[1]))
+        for k in range(ctx.d):
+            slot = offsets + k
+            ok = (k < span) & (slot < p)
+            dpacked = dpacked + torch.where(ok[:, None],
+                                            dpair[slot.clamp_max(p)], 0.0)
+        return dpacked, None, None, None, None, None
+
+
+def _route_all_to_all(packed: torch.Tensor, dest_lo: torch.Tensor,
+                      span: torch.Tensor, d: int, cap: int):
+    """Bucket one shard's splat rows by destination: (send (d * cap, F),
+    send_overflow () i32). Bucket j holds, in gaussian order, the rows
+    bound for shard j, up to cap of them; rows past a bucket's cap (or past
+    the d * cap expansion table) are dropped and counted. The row gather
+    is differentiable in `packed` (_RouteGather); the routing is
+    integer-only. The scatter writes distinct slots (dropped entries go to
+    slots past the table, one each): on the card, entries that all hit one
+    slot serialise."""
+    nloc, nfeat = packed.shape
+    dev = packed.device
+    p = d * cap
+    # (splat, destination) pairs in gaussian order, destinations ascending
+    # within one. Slot s belongs to the rightmost splat whose first slot
+    # is at or before it (splats of span 0 share their successor's offset;
+    # slots past the live total belong to the sentinel nloc), found by a
+    # binary search, as kernel B finds a pair's gaussian. The reference
+    # forward-fills a scatter with cummax instead; torch.cummax takes 2.5
+    # ms a 2^20-slot pass on the H100.
+    span_ext = torch.cat([span, span.new_full((1,), p)])
+    ends_cum = torch.cumsum(span_ext.to(torch.int64), 0)
+    offsets_ext = ends_cum - span_ext
+    total = ends_cum[-2]
+    slot = torch.arange(p, device=dev)
+    gid = torch.searchsorted(offsets_ext, slot, right=True) - 1
+    is_pad = gid >= nloc
+    dest_ext = torch.cat([dest_lo, dest_lo.new_full((1,), d)])
+    dest = torch.where(is_pad, d, dest_ext[gid] + (slot - offsets_ext[gid]))
+
+    # A stable sort by destination keeps gaussian order within a bucket;
+    # a pair's rank in its bucket counts from the bucket's first pair.
+    dest_s, perm = torch.sort(dest.to(I32), stable=True)
+    gid_s = gid[perm].to(I32)
+    bounds = torch.searchsorted(
+        dest_s, torch.arange(d + 1, dtype=I32, device=dev), out_int32=True)
+    lrank = slot - bounds.to(torch.int64)[dest_s.to(torch.int64)]
+    keep = (dest_s < d) & (lrank < cap)
+    kept_slot = dest_s.to(torch.int64) * cap + lrank
+    idx = torch.full((2 * p,), nloc, dtype=I32, device=dev).scatter_(
+        0, torch.where(keep, kept_slot, p + slot), gid_s)[:p].to(torch.int64)
+    if torch.is_grad_enabled() and packed.requires_grad:
+        pos = torch.empty(p, dtype=torch.int64, device=dev).scatter_(
+            0, perm, torch.where(keep, kept_slot, p))
+        send = _RouteGather.apply(packed, idx, pos, offsets_ext[:nloc],
+                                  span, d)
+    else:
+        send = torch.cat([packed, packed.new_zeros((1, nfeat))])[idx]
+
+    demand = bounds[1:] - bounds[:-1]
+    send_overflow = (torch.clamp_min(total - p, 0).to(I32)
+                     + torch.clamp_min(demand - cap, 0).sum(dtype=I32))
+    return send, send_overflow
+
+
+def _exchange_capacity(nloc: int, d: int,
+                       requested: int | None = None) -> int:
+    """Rows per destination bucket: an even nloc / d share with 4x slack,
+    never more than nloc (then no routing can overflow a bucket), 128-row
+    aligned."""
+    if requested is not None:
+        cap = requested
+    else:
+        cap = max(min(4 * nloc // max(d, 1), nloc), 128)
+    return -(-cap // 128) * 128
+
+
+def default_pair_budget(cfg: RasterConfig, d: int) -> int:
+    """Each shard's pair-table size when the caller passes none: an even
+    share of cfg.pair_capacity with 2x slack, chunk-aligned. The train
+    CLI's densify pair-demand guard compares against the same budget."""
+    per = max(2 * cfg.pair_capacity // d, 4 * cfg.chunk_size)
+    return -(-per // cfg.chunk_size) * cfg.chunk_size
+
+
+def _untile_rows(tiles: torch.Tensor, cfg: RasterConfig,
+                 rows_total: int) -> torch.Tensor:
+    """(rows_total * tiles_x, NPIX, 4) -> (H, W, 4), phantom rows cropped."""
+    c = tiles.shape[-1]
+    x = tiles.reshape(rows_total, cfg.tiles_x, cfg.tile_height,
+                      cfg.tile_width, c)
+    x = x.permute(0, 2, 1, 3, 4).reshape(rows_total * cfg.tile_height,
+                                         cfg.padded_width, c)
+    return x[:cfg.image_height, :cfg.image_width]
+
+
+class _ShardModel(NamedTuple):
+    """One shard's slice of the model's fields, as projection reads them."""
+
+    means: torch.Tensor
+    log_scales: torch.Tensor
+    quats: torch.Tensor
+    opacities: torch.Tensor
+    sh: torch.Tensor
+
+    @property
+    def sh_degree(self) -> int:
+        return int(round(self.sh.shape[1] ** 0.5)) - 1
+
+
+def _render_group(group: ShardGroup, model: GaussianModel, camera: Camera,
+                  cfg: RasterConfig, pair_capacity: int, exchange: str,
+                  cap: int, xy_probe: torch.Tensor | None):
+    """The shard body over one shard group: per shard (projected splats,
+    strip tiles, strip binned); then the group's psums. Returns (tiles
+    (rows * D * tiles_x, NPIX, 4), counts, overflow, num_pairs, visible,
+    truncated, exchange_overflow), gathered on the model's device."""
+    d = group.size
+    rows = _rows_per_device(cfg, d)
+    fields = [group.shard_slices(getattr(model, k)) for k in FIELDS]
+    probes = (group.shard_slices(xy_probe) if xy_probe is not None
+              else [None] * len(group.local))
+    cams = {}
+    splats, packed, xovf = [], [], []
+    for i, j in enumerate(group.local):
+        dev = group.devices[j]
+        if dev not in cams:
+            cams[dev] = camera.to(dev)
+        sp = project_gaussians(_ShardModel(*(f[i] for f in fields)),
+                               cams[dev], cfg, xy_probe=probes[i])
+        splats.append(sp)
+        packed.append(_pack_splats(sp))
+    if exchange == "all_to_all":
+        sends = []
+        for sp, pk in zip(splats, packed):
+            dest_lo, span = _dest_strip_span(sp, cfg, rows)
+            send, ovf = _route_all_to_all(pk, dest_lo, span, d, cap)
+            sends.append(send)
+            xovf.append(ovf)
+        routed = group.all_to_all(sends)
+    elif exchange == "all_gather":
+        routed = group.all_gather(packed)
+        xovf = [torch.zeros((), dtype=I32, device=pk.device)
+                for pk in packed]
+    else:
+        raise ValueError(f"exchange {exchange!r}: expected one of "
+                         f"{EXCHANGES}")
+    tiles, counts, ovf, npairs, trunc = [], [], [], [], []
+    for j, recv in zip(group.local, routed):
+        row_lo = j * rows
+        binned = binning.bin_splats(_unpack_splats(recv), cfg, row_lo, rows,
+                                    pair_capacity)
+        tiles.append(rasterize.rasterize_tiles(binned, cfg,
+                                               row_lo * cfg.tiles_x))
+        cnt = binned.tile_ends - binned.tile_starts
+        counts.append(cnt)
+        ovf.append(binned.overflow)
+        npairs.append(binned.num_pairs)
+        trunc.append(pipeline.truncated_pairs(cnt, cfg, row_lo))
+    out = model.device
+    return (group.gather(tiles, out), group.gather(counts, out),
+            group.psum(ovf).to(out), group.psum(npairs).to(out),
+            group.gather([sp.radius[:, 0] > 0.0 for sp in splats], out),
+            group.psum(trunc).to(out), group.psum(xovf).to(out))
+
+
+def _capacities(model, group, cfg: RasterConfig, pair_capacity,
+                exchange_capacity):
+    """(each shard's pair capacity, its exchange bucket rows)."""
+    d = group.size
+    if pair_capacity is None:
+        pair_capacity = default_pair_budget(cfg, d)
+    pair_capacity = -(-pair_capacity // cfg.chunk_size) * cfg.chunk_size
+    cap = _exchange_capacity(group.local_rows(model.num_gaussians), d,
+                             exchange_capacity)
+    return pair_capacity, cap
+
+
+def render_sharded(model: GaussianModel, camera: Camera, cfg: RasterConfig,
+                   mesh: Mesh, axis: str = SHARD_AXIS,
+                   pair_capacity: int | None = None,
+                   xy_probe: torch.Tensor | None = None,
+                   exchange: str = "all_to_all",
+                   exchange_capacity: int | None = None
+                   ) -> ShardedRenderOutput:
+    """Render one frame across the mesh's shard axis. Differentiable in the
+    model's parameters (and in xy_probe).
+
+    model: sharded (parallel.mesh.shard_model: N a multiple of the axis
+    size; on a process mesh, parallel/multihost.py, this process's
+    slice). pair_capacity: each shard's pair table (default
+    default_pair_budget). xy_probe: optional (N, 2) zeros sharded like the
+    model, the screen-space gradient probe of density control; its
+    gradient stays with the owning shard. exchange: "all_to_all" (the
+    default; exchange_capacity rows per destination bucket, default
+    _exchange_capacity) or "all_gather"."""
+    group = mesh.group(0, axis)
+    pair_capacity, cap = _capacities(model, group, cfg, pair_capacity,
+                                     exchange_capacity)
+    rows = _rows_per_device(cfg, group.size)
+    (tiles, counts, overflow, num_pairs, visible, truncated,
+     xovf) = _render_group(group, model, camera, cfg, pair_capacity,
+                           exchange, cap, xy_probe)
+    return ShardedRenderOutput(
+        image=_untile_rows(tiles, cfg, rows * group.size),
+        tile_counts=counts,
+        overflow=overflow, num_pairs=num_pairs, visible=visible,
+        truncated=truncated, exchange_overflow=xovf)
+
+
+def render_image_sharded(model: GaussianModel, camera: Camera,
+                         cfg: RasterConfig, mesh: Mesh,
+                         axis: str = SHARD_AXIS,
+                         pair_capacity: int | None = None,
+                         exchange: str = "all_to_all",
+                         exchange_capacity: int | None = None
+                         ) -> torch.Tensor:
+    return render_sharded(model, camera, cfg, mesh, axis, pair_capacity,
+                          exchange=exchange,
+                          exchange_capacity=exchange_capacity).image
+
+
+def render_views_sharded(model: GaussianModel, cameras: Sequence[Camera],
+                         cfg: RasterConfig, mesh: Mesh,
+                         view_axis: str = VIEW_AXIS,
+                         shard_axis: str = SHARD_AXIS,
+                         pair_capacity: int | None = None,
+                         exchange: str = "all_to_all",
+                         exchange_capacity: int | None = None,
+                         with_stats: bool = False):
+    """Render a batch of V views over a 2-D (view, shard) mesh: view group
+    v renders views [v * V / G, (v + 1) * V / G) one after another, each
+    with render_sharded's shard body over its own shards. Returns (V, H,
+    W, 4), or (images, stats) with with_stats, stats the drop counters
+    summed over views and shards: {"exchange_overflow", "overflow",
+    "truncated"}. Differentiable: the groups share the parameters, so their
+    gradients sum."""
+    groups = mesh.shape[view_axis]
+    v = len(cameras)
+    if v % groups:
+        raise ValueError(f"{v} views do not split over {groups} view groups")
+    d = mesh.shape[shard_axis]
+    pair_capacity, cap = _capacities(model, mesh.group(0, shard_axis), cfg,
+                                     pair_capacity, exchange_capacity)
+    rows = _rows_per_device(cfg, d)
+    images: List[torch.Tensor] = []
+    stats = torch.zeros(3, dtype=I32, device=model.device)
+    for k, cam in enumerate(cameras):
+        group = mesh.group(k // (v // groups), shard_axis)
+        tiles, _, overflow, _, _, truncated, xovf = _render_group(
+            group, model, cam, cfg, pair_capacity, exchange, cap, None)
+        images.append(_untile_rows(tiles, cfg, rows * d))
+        stats = stats + torch.stack([xovf, overflow, truncated])
+    images = torch.stack(images)
+    if not with_stats:
+        return images
+    return images, {"exchange_overflow": stats[0], "overflow": stats[1],
+                    "truncated": stats[2]}
+
+
+# -- training --------------------------------------------------------------
+
+def make_sharded_train_step(mesh: Mesh, raster_cfg: RasterConfig,
+                            train_cfg: trainer.TrainConfig,
+                            axis: str = SHARD_AXIS,
+                            pair_capacity: int | None = None):
+    """step(state, camera, target) -> (state, loss): trainer.train_step
+    with the sharded render, updating the state in place. The gradients of
+    the exchange land on the owning shards' parameter slices."""
+    def image_fn(params, camera, cfg):
+        return render_image_sharded(params, camera, cfg, mesh, axis,
+                                    pair_capacity)
+
+    def step(state: trainer.TrainState, camera: Camera,
+             target: torch.Tensor):
+        return trainer.train_step(state, camera, target, raster_cfg,
+                                  train_cfg, image_fn=image_fn)
+
+    return step
+
+
+def make_view_batch_train_step(mesh: Mesh, raster_cfg: RasterConfig,
+                               train_cfg: trainer.TrainConfig,
+                               view_axis: str = VIEW_AXIS,
+                               shard_axis: str = SHARD_AXIS,
+                               pair_capacity: int | None = None):
+    """step(state, cameras, targets) -> (loss, stats (3,) i32): one update
+    from a batch of V views on a (view, shard) mesh, the loss the mean of
+    the per-view losses, the parameter gradients summed over the view
+    groups by autograd (each group's render reads the same parameters);
+    stats the summed drop counters (exchange_overflow, overflow,
+    truncated): dropped rows corrupt gradients, so the caller checks
+    them. Updates the state in place."""
+    def step(state: trainer.TrainState, cameras: Sequence[Camera],
+             targets: torch.Tensor):
+        params = state.params
+        images, stats = render_views_sharded(
+            params, cameras, raster_cfg, mesh, view_axis, shard_axis,
+            pair_capacity, with_stats=True)
+        per_view = torch.stack([
+            losses.render_loss(im, tg, train_cfg.ssim_weight)
+            for im, tg in zip(images.unbind(0), targets.unbind(0))])
+        loss = torch.mean(per_view)
+        grads = torch.autograd.grad(loss, tuple(params.parameters()))
+        trainer.apply_param_updates(params, dict(zip(FIELDS, grads)),
+                                    state.opt_state, train_cfg)
+        state.step.add_(1)
+        return loss.detach(), torch.stack([stats["exchange_overflow"],
+                                           stats["overflow"],
+                                           stats["truncated"]])
+
+    return step
+
+
+def make_sharded_densify_train_step(mesh: Mesh, raster_cfg: RasterConfig,
+                                    train_cfg: trainer.TrainConfig,
+                                    axis: str = SHARD_AXIS,
+                                    pair_capacity: int | None = None):
+    """densify.make_train_step on the sharded render: step(state,
+    grad_sum, vis_count, camera, target) -> loss. The probe is sharded
+    like the model, so its gradient, the NDC norm scaled by half the image
+    size, accumulates on the owning shard's slots."""
+    def render_fn(params, camera, cfg, xy_probe=None):
+        return render_sharded(params, camera, cfg, mesh, axis, pair_capacity,
+                              xy_probe=xy_probe)
+
+    return densify_lib.make_train_step(raster_cfg, train_cfg,
+                                       render_fn=render_fn)
+
+
+def grow_capacity_sharded(mesh: Mesh, state: trainer.TrainState,
+                          dstate: densify_lib.DensifyState,
+                          new_capacity: int, axis: str = SHARD_AXIS):
+    """Slot-buffer growth of sharded training state: each shard's slice of
+    every slot-indexed tensor (parameters, Adam moments, statistics) gains
+    (new - old) / D dead slots at its end, so the buffer keeps its even
+    per-shard layout (growth at the global end would land every new slot
+    on the last shard). New slots are culled and unallocated (opacity and
+    log-scales -30, identity quaternions, alive False); the density event
+    allocates by the alive mask, so interleaved dead runs serve as a
+    contiguous tail would. The result holds new tensors: register the
+    programs again."""
+    d = mesh.shape[axis]
+    old = dstate.alive.shape[0]
+    if new_capacity == old:
+        return state, dstate
+    if new_capacity < old or new_capacity % d or old % d:
+        raise ValueError(f"capacity {old} -> {new_capacity} must grow in "
+                         f"multiples of the mesh size {d}")
+    pad_per = (new_capacity - old) // d
+
+    def grow(x, fill=0.0):
+        shards = x.detach().reshape(d, old // d, *x.shape[1:])
+        if fill is None:       # identity quaternions
+            pad = shards.new_zeros((d, pad_per, 4))
+            pad[..., 0] = 1.0
+        else:
+            pad = shards.new_full((d, pad_per) + tuple(x.shape[1:]), fill)
+        return torch.cat([shards, pad], 1).reshape(new_capacity,
+                                                   *x.shape[1:])
+
+    p = state.params
+    params = GaussianModel(grow(p.means), grow(p.log_scales, -30.0),
+                           grow(p.quats, None), grow(p.opacities, -30.0),
+                           grow(p.sh), requires_grad=True)
+    opt = trainer.OptState(
+        {label: trainer.AdamState(st.count, grow(st.mu), grow(st.nu))
+         for label, st in state.opt_state.adam.items()},
+        state.opt_state.means_lr_count)
+    return (trainer.TrainState(params, opt, state.step),
+            densify_lib.DensifyState(grow(dstate.grad_sum),
+                                     grow(dstate.vis_count),
+                                     grow(dstate.alive, False), dstate.key))

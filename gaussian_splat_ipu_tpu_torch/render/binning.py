@@ -1,6 +1,5 @@
 """Gaussian -> tile binning (torch port of
-gaussian_splat_ipu_tpu/render/binning.py::bin_splats, every single-device
-path of it).
+gaussian_splat_ipu_tpu/render/binning.py::bin_splats, every path of it).
 
 Per frame: each gaussian's clamped tile (or tile-group) rectangle, optional
 exact coverage masks (kernel A, render/kernels/coverage.py), slot offsets
@@ -24,15 +23,28 @@ reference chooses it (binning.py:901-944, :1019-1133):
   gathers the rows.
 The output is bit-identical to the reference's BinnedSplats.
 
+Row strips (binning.py:804-865, :967-976): with row_lo / num_rows, bin_splats
+enumerates only the pairs of tile rows [row_lo, min(row_lo + num_rows,
+tiles_y)) and reports the ranges of those num_rows * tiles_x tiles, keyed by
+global tile id; this is one shard's strip on the distributed path
+(parallel/distributed.py). The sort key's tile bits are the global grid's
+(utils/config.tile_bits), so a strip's pairs sort as the single-device
+table's. Two guards of the port's own, where the reference goes wrong on
+inputs its own callers do not make:
+- phantom tiles (rows past the grid, on the last strip of an uneven
+  sharding) query the first key past the grid, so their ranges are empty
+  even where the reference's phantom id would equal the pad sentinel
+  (tiles_y = 8, tile_group = 3, 8 strips);
+- the row buckets of a strip that does not start on a group row cover every
+  group row the strip touches (the reference's ceil(num_rows / g) misses the
+  last one and drops its pairs).
+
 Gradients: every path's pair table is a row selection of the packed
 per-gaussian table, so its backward (`_PairTable`) is one index_add_ of
 the table's cotangent rows by sorted gid, as the reference's VJPs
 (binning.py:307-315, :465-473, :660-668, :727-738, :790-797). Everything
 else here is integer work or detached, as in the reference (binning.py:136,
 :204).
-
-Not ported yet: the distributed row-strip arguments of bin_splats (row_lo,
-num_rows, pair_capacity).
 """
 
 from __future__ import annotations
@@ -116,22 +128,28 @@ def _f32_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(I32).contiguous().view(torch.float32)
 
 
-def tile_ranges_of(splats: ProjectedSplats, cfg: RasterConfig):
+def tile_ranges_of(splats: ProjectedSplats, cfg: RasterConfig,
+                   row_lo: int = 0, row_hi: int | None = None):
     """Clamped tile rectangle [x0, y0] + [nx, ny] per gaussian; culled or
-    off-grid gaussians get nx = ny = 0."""
+    off-grid gaussians get nx = ny = 0. row_lo / row_hi restrict the rows
+    to [row_lo, row_hi) (a strip; default the whole grid): a gaussian
+    disjoint from them gets nx = ny = 0."""
+    if row_hi is None:
+        row_hi = cfg.tiles_y
     rx, ry = splats.radius[:, 0], splats.radius[:, 1]
     visible = rx > 0.0
     x, y = splats.xy[:, 0], splats.xy[:, 1]
 
-    def span(c, r, tile_sz, hi_bound):
-        lo = torch.clamp_min(_to_i32(torch.floor((c - r) / tile_sz)), 0)
+    def span(c, r, tile_sz, lo_bound, hi_bound):
+        lo = torch.clamp_min(_to_i32(torch.floor((c - r) / tile_sz)),
+                             lo_bound)
         hi = torch.clamp_max(_to_i32(torch.floor((c + r) / tile_sz)),
                              hi_bound - 1)
         n = torch.clamp(hi - lo + 1, 0, cfg.max_tiles_per_axis)
         return lo, n
 
-    x0, nx = span(x, rx, cfg.tile_width, cfg.tiles_x)
-    y0, ny = span(y, ry, cfg.tile_height, cfg.tiles_y)
+    x0, nx = span(x, rx, cfg.tile_width, 0, cfg.tiles_x)
+    y0, ny = span(y, ry, cfg.tile_height, row_lo, row_hi)
     zero = torch.zeros_like(nx)
     return x0, y0, torch.where(visible, nx, zero), torch.where(visible, ny,
                                                                zero)
@@ -319,11 +337,12 @@ def _pair_table(build, packed):
     return build(packed)
 
 
-def cell_footprints(splats: ProjectedSplats, cfg: RasterConfig):
+def cell_footprints(splats: ProjectedSplats, cfg: RasterConfig,
+                    row_lo: int = 0, row_hi: int | None = None):
     """(x0, y0, nx, ny) per gaussian in CELL units: tiles, or g x g tile
     groups when cfg.tile_group = g > 1 (a span inside one group is one
-    pair)."""
-    x0, y0, nx, ny = tile_ranges_of(splats, cfg)
+    pair), over tile rows [row_lo, row_hi)."""
+    x0, y0, nx, ny = tile_ranges_of(splats, cfg, row_lo, row_hi)
     g = cfg.tile_group
     if g > 1:
         x1 = x0 + torch.clamp_min(nx - 1, 0)
@@ -346,10 +365,11 @@ def coverage_inputs(splats: ProjectedSplats, x0, y0, nx, ny):
     return testable, geomf.contiguous(), geomi.contiguous()
 
 
-def footprints(splats: ProjectedSplats, cfg: RasterConfig) -> Footprints:
-    """Cell rectangles and pair counts, exact ones (kernel A) with
-    exact_tile_test."""
-    x0, y0, nx, ny = cell_footprints(splats, cfg)
+def footprints(splats: ProjectedSplats, cfg: RasterConfig,
+               row_lo: int = 0, row_hi: int | None = None) -> Footprints:
+    """Cell rectangles and pair counts over tile rows [row_lo, row_hi),
+    exact ones (kernel A) with exact_tile_test."""
+    x0, y0, nx, ny = cell_footprints(splats, cfg, row_lo, row_hi)
     g = cfg.tile_group
     ncov = (nx * ny).to(I32)
     if cfg.exact_tile_test:
@@ -552,20 +572,35 @@ class RowSegLayout(NamedTuple):
     bounds: tuple           # (R+1,) first group row of each bucket
 
 
-def rowseg_layout(fp: Footprints, cfg: RasterConfig) -> RowSegLayout:
+def strip_group_rows(cfg: RasterConfig, row_lo: int, num_rows: int):
+    """(first group row, group rows) of the strip of tile rows [row_lo,
+    row_lo + num_rows): every group row the strip touches."""
+    g = cfg.tile_group
+    gy_lo = row_lo // g
+    return gy_lo, (row_lo + num_rows - 1) // g - gy_lo + 1
+
+
+def rowseg_layout(fp: Footprints, cfg: RasterConfig, row_lo: int = 0,
+                  num_rows: int | None = None,
+                  pair_capacity: int | None = None) -> RowSegLayout:
     """The segment geometry (binning.py:942-966, :1053-1077): per-bucket
     pair counts, their row scan (kernel E) into absolute slot offsets, and
-    each bucket's live end. The capacity per bucket is pair_capacity / R
-    rounded up to SEG_ALIGN (binning.py:965). A bucket whose demand
-    exceeds it keeps its first `cap` pairs."""
+    each bucket's live end. The buckets split the group rows of the strip
+    [row_lo, row_lo + num_rows) (default the whole grid), counted from its
+    first. The capacity per bucket is pair_capacity / R rounded up to
+    SEG_ALIGN (binning.py:965). A bucket whose demand exceeds it keeps its
+    first `cap` pairs."""
     r_seg = cfg.rowseg_buckets
-    bounds = rowseg_bounds(cfg, -(-cfg.tiles_y // cfg.tile_group))
-    cap = -(-(-(-cfg.pair_capacity // r_seg)) // SEG_ALIGN) * SEG_ALIGN
+    gy_lo, nrows_g = strip_group_rows(
+        cfg, row_lo, cfg.tiles_y if num_rows is None else num_rows)
+    bounds = rowseg_bounds(cfg, nrows_g)
+    p = pair_capacity or cfg.pair_capacity
+    cap = -(-(-(-p // r_seg)) // SEG_ALIGN) * SEG_ALIGN
     if cap % cfg.chunk_size:
         raise ValueError(f"row-bucket capacity {cap} is not a multiple of "
                          f"chunk_size {cfg.chunk_size}")
     counts = _bucket_counts(fp.y0, fp.nx, fp.ny, fp.flag01, fp.mlo, fp.mhi,
-                            0, bounds)
+                            gy_lo, bounds)
     excl = scan.row_cumsum_exclusive(counts)
     kept = torch.clamp_max(excl[:, -1] + counts[:, -1], cap)
     bases = torch.arange(r_seg, dtype=I32, device=counts.device) * cap
@@ -576,11 +611,13 @@ def rowseg_layout(fp: Footprints, cfg: RasterConfig) -> RowSegLayout:
     return RowSegLayout(counts, offs, offs2, bases + kept, kept, cap, bounds)
 
 
-def _bin_rowseg(fp: Footprints, body, cfg: RasterConfig, tids, ntx_key,
-                depth_keep_bits):
+def _bin_rowseg(fp: Footprints, body, cfg: RasterConfig, tids, queries,
+                ntx_key, depth_keep_bits, row_lo, num_rows, p):
     """Row-bucket segmented binning (binning.py:1049-1100): (feats,
-    tile_s, gid_s, starts, ends, num_pairs, overflow)."""
-    lay = rowseg_layout(fp, cfg)
+    tile_s, gid_s, starts, ends, num_pairs, overflow). tids: each reported
+    tile's key, which picks its bucket; queries: the key its range is
+    searched for (phantom tiles clamped past the grid)."""
+    lay = rowseg_layout(fp, cfg, row_lo, num_rows, p)
     r_seg, cap = lay.offs.shape[0], lay.cap
     feats, tile_s, gid_s = _pair_table(
         lambda pk: _rowseg_sort(pk, lay.offs, lay.offs2, lay.live_end, cap,
@@ -589,10 +626,11 @@ def _bin_rowseg(fp: Footprints, body, cfg: RasterConfig, tids, ntx_key,
     # CSR per bucket: each tile searches the sorted run of the bucket
     # holding its group row.
     runs = tile_s.view(r_seg, cap)
-    queries = tids.expand(r_seg, -1).contiguous()
+    queries = queries.expand(r_seg, -1).contiguous()
+    rel = tids // ntx_key - row_lo // cfg.tile_group
     b_t = torch.zeros_like(tids)
     for b in lay.bounds[1:-1]:
-        b_t = b_t + (tids // ntx_key >= b).to(I32)
+        b_t = b_t + (rel >= b).to(I32)
     b_t = torch.clamp(b_t, 0, r_seg - 1)
     row = b_t[None].long()
     starts = b_t * cap + torch.searchsorted(
@@ -655,39 +693,54 @@ def _bin_gather(fp: Footprints, body, splats: ProjectedSplats, p: int,
     return feats, tile_s, gid_s, offsets_ext[n]
 
 
-def bin_splats(splats: ProjectedSplats, cfg: RasterConfig) -> BinnedSplats:
-    """Bin splats into per-tile depth-sorted ranges (single device, whole
-    grid). Runs on the device of `splats` without host synchronisation."""
+def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
+               row_lo: int | None = None, num_rows: int | None = None,
+               pair_capacity: int | None = None) -> BinnedSplats:
+    """Bin splats into per-tile depth-sorted ranges. Runs on the device of
+    `splats` without host synchronisation.
+
+    With row_lo / num_rows (Python ints), bins only tile rows [row_lo,
+    row_lo + num_rows), rows past the grid binning nothing, and reports the
+    ranges of those num_rows * tiles_x tiles (a distributed strip; module
+    docstring). pair_capacity overrides cfg.pair_capacity."""
     check_supported(cfg)
     n = splats.xy.shape[0]
-    p = cfg.pair_capacity
+    p = pair_capacity or cfg.pair_capacity
     if p % cfg.chunk_size:
         raise ValueError(f"pair_capacity {p} is not a multiple of "
                          f"chunk_size {cfg.chunk_size}")
+    if row_lo is None:
+        row_lo, num_rows = 0, cfg.tiles_y
+    if num_rows is None or row_lo < 0 or num_rows <= 0:
+        raise ValueError(f"row strip row_lo={row_lo}, num_rows={num_rows}")
     g = cfg.tile_group
     ntx = cfg.tiles_x
     ntx_key = -(-ntx // g)
-    nrows_g = -(-cfg.tiles_y // g)
-    num_keys_total = ntx_key * nrows_g
+    num_keys_total = ntx_key * -(-cfg.tiles_y // g)
     tb = tile_bits(cfg)
     dkb = 31 - tb
 
-    # Per-tile ids whose ranges are reported; with tile groups every member
+    # The global key of each reported tile; with tile groups every member
     # tile points at its group's range.
-    tids = torch.arange(cfg.num_tiles, dtype=I32, device=splats.xy.device)
-    if g > 1:
-        tids = (tids // ntx // g) * ntx_key + (tids % ntx) // g
+    local = torch.arange(num_rows * ntx, dtype=I32, device=splats.xy.device)
+    rows = row_lo + local // ntx
+    tids = (rows // g) * ntx_key + (local % ntx) // g
+    # Phantom tiles search the first key past the grid: an empty range.
+    queries = torch.clamp_max(tids, num_keys_total)
 
-    fp = footprints(splats, cfg)
+    fp = footprints(splats, cfg, row_lo,
+                    min(row_lo + num_rows, cfg.tiles_y))
     body = _body(splats)
     # Path selection as the reference's (binning.py:901-902, :937-944).
     use_presort = cfg.presort_depth and cfg.fused_sort_key and tb <= 31 \
         and n > 0
     fused = cfg.fused_sort_key and dkb >= 16
     use_stream = fused and not use_presort and cfg.expand_kernel and n > 0
+    nrows_g = strip_group_rows(cfg, row_lo, num_rows)[1]
     if use_stream and 1 < cfg.rowseg_buckets <= nrows_g:
         feats, tile_s, gid_s, starts, ends, num_pairs, overflow = \
-            _bin_rowseg(fp, body, cfg, tids, ntx_key, dkb)
+            _bin_rowseg(fp, body, cfg, tids, queries, ntx_key, dkb, row_lo,
+                        num_rows, p)
     else:
         if use_stream:
             offsets_ext = _offsets(fp.ncov)
@@ -698,8 +751,9 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig) -> BinnedSplats:
         else:
             feats, tile_s, gid_s, total = _bin_gather(
                 fp, body, splats, p, use_presort, fused, dkb, ntx_key)
-        starts = torch.searchsorted(tile_s, tids, out_int32=True)
-        ends = torch.searchsorted(tile_s, tids, right=True, out_int32=True)
+        starts = torch.searchsorted(tile_s, queries, out_int32=True)
+        ends = torch.searchsorted(tile_s, queries, right=True,
+                                  out_int32=True)
         num_pairs = torch.clamp_max(total, p)
         overflow = torch.clamp_min(total - p, 0)
     pad_s = tile_s >= num_keys_total

@@ -54,16 +54,16 @@ _SIGNATURES = {
     "gsplat_row_cumsum_scratch_words": (_I, _I),
     # x, r, n, out, scratch, stream
     "gsplat_row_cumsum_exclusive": (_P, _I, _I, _P, _P, _P),
-    # feats, p, starts, ends, num_tiles, tiles_x, tile_w, tile_h, chunk,
-    # max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2, mode, out, nc,
-    # stream
-    "gsplat_rasterize_fwd": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+    # feats, p, starts, ends, num_tiles, tile_offset, tiles_x, tile_w,
+    # tile_h, chunk, max_pairs, eps, alpha_clamp, alpha_min, bg0, bg1, bg2,
+    # mode, out, nc, stream
+    "gsplat_rasterize_fwd": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _F, _F, _F, _F, _F, _F, _I, _P, _P, _P),
-    # feats, p, starts, ends, gout, t_n, nc, num_tiles, tiles_x, tile_w,
-    # tile_h, chunk, max_pairs, alpha_clamp, alpha_min, bg0, bg1, bg2,
-    # dfeat, stream
+    # feats, p, starts, ends, gout, t_n, nc, num_tiles, tile_offset,
+    # tiles_x, tile_w, tile_h, chunk, max_pairs, alpha_clamp, alpha_min,
+    # bg0, bg1, bg2, dfeat, stream
     "gsplat_rasterize_bwd": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _F, _F, _F, _F, _P, _P),
+                             _I, _I, _I, _F, _F, _F, _F, _F, _P, _P),
 }
 
 launches: collections.Counter = collections.Counter()

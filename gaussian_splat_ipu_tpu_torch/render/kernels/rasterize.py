@@ -12,6 +12,12 @@ relaxed. CUDA tensors launch csrc/rasterize.cu and csrc/rasterize_bwd.cu;
 CPU tensors take the plain versions in render/tile_raster.py. There is no
 other fallback: a CUDA tensor whose kernel fails to build or launch
 raises.
+
+Every entry takes `tile_offset`, the global flat id of the first tile of
+the ranges: a row strip of the distributed renderer (parallel/
+distributed.py) passes row_lo * tiles_x, as the reference passes its
+`off_ref` scalar (:614-634). A strip is whole tile rows, so the offset is
+a multiple of tiles_x.
 """
 
 from __future__ import annotations
@@ -51,9 +57,13 @@ def _layout(cfg: RasterConfig, max_ppt: int):
     return None
 
 
-def _check_launch(feats, starts, ends, cfg: RasterConfig, backward: bool):
+def _check_launch(feats, starts, ends, cfg: RasterConfig, backward: bool,
+                  tile_offset: int):
     """Validate what the kernels take; returns (device, P, T, max_pairs)."""
     cuda_lib.require_cuda(feats, "features")
+    if tile_offset < 0 or tile_offset % cfg.tiles_x:
+        raise ValueError(f"tile_offset {tile_offset}: not a whole number of "
+                         f"{cfg.tiles_x}-tile rows")
     dev = feats.device
     p = feats.shape[1]
     num_tiles = starts.shape[0]
@@ -72,13 +82,14 @@ def _check_launch(feats, starts, ends, cfg: RasterConfig, backward: bool):
     return dev, p, num_tiles, max_pairs
 
 
-def _forward(binned: B.BinnedSplats, cfg: RasterConfig, mode: int):
+def _forward(binned: B.BinnedSplats, cfg: RasterConfig, mode: int,
+             tile_offset: int = 0):
     """Launch kernel C in `mode`: (T, NPIX, 4) tiles, and with _STRICT_AUX
     also the (T, NPIX) f32 contributor counts."""
     feats, starts, ends = binned.features, binned.tile_starts, \
         binned.tile_ends
     dev, p, num_tiles, max_pairs = _check_launch(feats, starts, ends, cfg,
-                                                 backward=False)
+                                                 False, tile_offset)
     npix = cfg.pixels_per_tile
     out = torch.empty((num_tiles, npix, 4), dtype=torch.float32, device=dev)
     nc = (torch.empty((num_tiles, npix), dtype=torch.float32, device=dev)
@@ -88,7 +99,8 @@ def _forward(binned: B.BinnedSplats, cfg: RasterConfig, mode: int):
         lib = cuda_lib.library()
         cuda_lib.check("rasterize_fwd", lib.gsplat_rasterize_fwd(
             feats.data_ptr(), p, starts.data_ptr(), ends.data_ptr(),
-            num_tiles, cfg.tiles_x, cfg.tile_width, cfg.tile_height,
+            num_tiles, tile_offset, cfg.tiles_x, cfg.tile_width,
+            cfg.tile_height,
             cfg.chunk_size, max_pairs, cfg.transmittance_eps,
             cfg.alpha_clamp, cfg.alpha_min, bg[0], bg[1], bg[2], mode,
             out.data_ptr(), 0 if nc is None else nc.data_ptr(),
@@ -97,27 +109,30 @@ def _forward(binned: B.BinnedSplats, cfg: RasterConfig, mode: int):
     return out if nc is None else (out, nc)
 
 
-def rasterize_tiles_aux(binned: B.BinnedSplats, cfg: RasterConfig):
+def rasterize_tiles_aux(binned: B.BinnedSplats, cfg: RasterConfig,
+                        tile_offset: int = 0):
     """Strict forward with contributor counts: ((T, NPIX, 4) tiles,
     (T, NPIX) f32 nc). CUDA tensors launch the strict aux kernel, CPU
     tensors take the plain version."""
     if binned.features.device.type == "cpu":
-        return rasterize_tiles_torch(binned, cfg, need_aux=True)
-    return _forward(binned, cfg, _STRICT_AUX)
+        return rasterize_tiles_torch(binned, cfg, need_aux=True,
+                                     tile_offset=tile_offset)
+    return _forward(binned, cfg, _STRICT_AUX, tile_offset)
 
 
 def rasterize_backward(features: torch.Tensor, starts: torch.Tensor,
                        ends: torch.Tensor, gout: torch.Tensor,
                        t_n: torch.Tensor, nc: torch.Tensor,
-                       cfg: RasterConfig) -> torch.Tensor:
+                       cfg: RasterConfig,
+                       tile_offset: int = 0) -> torch.Tensor:
     """dfeat (16, P) from the cotangent gout (T, NPIX, 4) and the saved
     t_n, nc (T, NPIX); see tile_raster.rasterize_backward_torch. CUDA
     tensors launch kernel D, CPU tensors take the plain version."""
     if features.device.type == "cpu":
         return rasterize_backward_torch(features, starts, ends, gout, t_n,
-                                        nc, cfg)
+                                        nc, cfg, tile_offset)
     dev, p, num_tiles, max_pairs = _check_launch(
-        features, starts, ends, cfg, backward=True)
+        features, starts, ends, cfg, True, tile_offset)
     npix = cfg.pixels_per_tile
     cuda_lib.require(gout, "gout", torch.float32, (num_tiles, npix, 4), dev)
     cuda_lib.require(t_n, "t_n", torch.float32, (num_tiles, npix), dev)
@@ -129,9 +144,10 @@ def rasterize_backward(features: torch.Tensor, starts: torch.Tensor,
         cuda_lib.check("rasterize_bwd", lib.gsplat_rasterize_bwd(
             features.data_ptr(), p, starts.data_ptr(), ends.data_ptr(),
             gout.data_ptr(), t_n.data_ptr(), nc.data_ptr(), num_tiles,
-            cfg.tiles_x, cfg.tile_width, cfg.tile_height, cfg.chunk_size,
-            max_pairs, cfg.alpha_clamp, cfg.alpha_min, bg[0], bg[1], bg[2],
-            dfeat.data_ptr(), cuda_lib.stream_handle(dev)))
+            tile_offset, cfg.tiles_x, cfg.tile_width, cfg.tile_height,
+            cfg.chunk_size, max_pairs, cfg.alpha_clamp, cfg.alpha_min,
+            bg[0], bg[1], bg[2], dfeat.data_ptr(),
+            cuda_lib.stream_handle(dev)))
         cuda_lib.launches["rasterize_bwd"] += 1
     return dfeat
 
@@ -141,12 +157,13 @@ class _Rasterize(torch.autograd.Function):
     table (the tile ranges are integers)."""
 
     @staticmethod
-    def forward(ctx, features, binned, cfg):
+    def forward(ctx, features, binned, cfg, tile_offset):
         tiles, nc = rasterize_tiles_aux(binned._replace(features=features),
-                                        cfg)
+                                        cfg, tile_offset)
         ctx.save_for_backward(features, binned.tile_starts, binned.tile_ends,
                               1.0 - tiles[..., 3], nc)
         ctx.cfg = cfg
+        ctx.tile_offset = tile_offset
         return tiles
 
     @staticmethod
@@ -154,19 +171,22 @@ class _Rasterize(torch.autograd.Function):
     def backward(ctx, gout):
         features, starts, ends, t_n, nc = ctx.saved_tensors
         return rasterize_backward(features, starts, ends, gout.contiguous(),
-                                  t_n, nc, ctx.cfg), None, None
+                                  t_n, nc, ctx.cfg,
+                                  ctx.tile_offset), None, None, None
 
 
-def rasterize_tiles(binned: B.BinnedSplats, cfg: RasterConfig
-                    ) -> torch.Tensor:
-    """Rasterize binned splats -> (T, NPIX, 4) RGBA tile buffers.
-    Differentiated: the strict aux forward and kernel D. Otherwise the
-    inference primal, strict or relaxed per cfg.strict_termination. CUDA
-    tensors launch the kernels, CPU tensors take the plain versions."""
+def rasterize_tiles(binned: B.BinnedSplats, cfg: RasterConfig,
+                    tile_offset: int = 0) -> torch.Tensor:
+    """Rasterize binned splats -> (T, NPIX, 4) RGBA tile buffers, local
+    tile t at global flat id tile_offset + t. Differentiated: the strict
+    aux forward and kernel D. Otherwise the inference primal, strict or
+    relaxed per cfg.strict_termination. CUDA tensors launch the kernels,
+    CPU tensors take the plain versions."""
     feats = binned.features
     if torch.is_grad_enabled() and feats.requires_grad:
-        return _Rasterize.apply(feats, binned, cfg)
+        return _Rasterize.apply(feats, binned, cfg, tile_offset)
     if feats.device.type == "cpu":
-        return rasterize_tiles_torch(binned, cfg)
+        return rasterize_tiles_torch(binned, cfg, tile_offset=tile_offset)
     return _forward(binned, cfg,
-                    _STRICT if cfg.strict_termination else _RELAXED)
+                    _STRICT if cfg.strict_termination else _RELAXED,
+                    tile_offset)

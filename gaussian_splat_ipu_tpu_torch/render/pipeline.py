@@ -52,18 +52,26 @@ def render(model: GaussianModel, camera: Camera, cfg: RasterConfig,
     tiles = rasterize.rasterize_tiles(binned, cfg)
     image = _untile_crop(tiles, cfg)
     counts = binned.tile_ends - binned.tile_starts
-    work_cap = cfg.max_chunks_per_range * cfg.chunk_size
-    over = torch.clamp_min(counts - work_cap, 0)
-    g = cfg.tile_group
-    if g > 1:
-        idx = torch.arange(counts.shape[0], device=counts.device)
-        rep = (((idx // cfg.tiles_x) % g == 0)
-               & ((idx % cfg.tiles_x) % g == 0))
-        over = torch.where(rep, over, 0)
     return RenderOutput(image=image, tile_counts=counts,
                         overflow=binned.overflow, num_pairs=binned.num_pairs,
                         visible=splats.radius[:, 0] > 0.0,
-                        truncated=over.sum(dtype=torch.int32))
+                        truncated=truncated_pairs(counts, cfg))
+
+
+def truncated_pairs(counts: torch.Tensor, cfg: RasterConfig,
+                    row_lo: int = 0) -> torch.Tensor:
+    """() i32 pairs past the per-range work bound max_chunks_per_range *
+    chunk_size, one tally per tile group, of the per-tile pair counts of
+    tile rows from row_lo on (a row strip of the distributed renderer)."""
+    over = torch.clamp_min(
+        counts - cfg.max_chunks_per_range * cfg.chunk_size, 0)
+    g = cfg.tile_group
+    if g > 1:
+        idx = torch.arange(counts.shape[0], device=counts.device)
+        rep = (((row_lo + idx // cfg.tiles_x) % g == 0)
+               & ((idx % cfg.tiles_x) % g == 0))
+        over = torch.where(rep, over, 0)
+    return over.sum(dtype=torch.int32)
 
 
 def render_image(model: GaussianModel, camera: Camera,

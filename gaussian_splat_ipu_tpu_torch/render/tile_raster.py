@@ -1,6 +1,8 @@
 """Tiled rasterization in plain torch: the CPU spec of the forward and
 backward compositing kernels (render/kernels/rasterize.py) and their plain
-versions on the card.
+versions on the card. Every function takes the global flat id of its first
+tile (`tile_offset`, a row strip's first tile on the distributed path) and
+places pixel centres by global tile id.
 
 Port of gaussian_splat_ipu_tpu/render/tile_raster.py (forward) and of the
 replay recurrence of the reference's backward kernel
@@ -46,10 +48,12 @@ def _pixel_coords(cfg: RasterConfig, device):
             (idx // cfg.tile_width).to(torch.float32))
 
 
-def _tile_pixels(cfg: RasterConfig, num_tiles: int, device):
-    """(T, NPIX) global x and y of every pixel centre of tiles 0..T-1."""
+def _tile_pixels(cfg: RasterConfig, num_tiles: int, device,
+                 tile_offset: int = 0):
+    """(T, NPIX) global x and y of every pixel centre of the tiles whose
+    global flat ids are tile_offset .. tile_offset + T - 1."""
     lx, ly = _pixel_coords(cfg, device)
-    tids = torch.arange(num_tiles, device=device)
+    tids = tile_offset + torch.arange(num_tiles, device=device)
     px = ((tids % cfg.tiles_x) * cfg.tile_width).to(torch.float32)[:, None] \
         + lx[None, :]
     py = ((tids // cfg.tiles_x) * cfg.tile_height).to(torch.float32)[
@@ -67,11 +71,13 @@ def _clipped_ranges(starts, ends, cfg: RasterConfig):
 
 
 def rasterize_tiles_torch(binned: B.BinnedSplats, cfg: RasterConfig,
-                          need_aux: bool = False):
-    """Rasterize binned splats of the whole tile grid -> (T, NPIX, 4) RGBA
-    tile buffers. need_aux=True composites with strict termination
-    whatever cfg says (the differentiated forward) and returns
-    (tiles, nc), nc the (T, NPIX) f32 contributor count of each pixel."""
+                          need_aux: bool = False, tile_offset: int = 0):
+    """Rasterize binned splats -> (T, NPIX, 4) RGBA tile buffers. Local
+    tile t lies at global flat id tile_offset + t (a row strip of the
+    distributed renderer; 0 for the whole grid). need_aux=True composites
+    with strict termination whatever cfg says (the differentiated forward)
+    and returns (tiles, nc), nc the (T, NPIX) f32 contributor count of
+    each pixel."""
     feats = binned.features
     device = feats.device
     c = cfg.chunk_size
@@ -83,7 +89,7 @@ def rasterize_tiles_torch(binned: B.BinnedSplats, cfg: RasterConfig,
     # ended earlier (masked by `valid`) are clamped into it.
     table = torch.cat([feats[:B.FEAT_OPACITY + 1],
                        feats.new_zeros((B.FEAT_OPACITY + 1, c))], dim=1)
-    px, py = _tile_pixels(cfg, num_tiles, device)           # (T, NPIX)
+    px, py = _tile_pixels(cfg, num_tiles, device, tile_offset)  # (T, NPIX)
 
     t = torch.ones_like(px)
     # Position of each pixel's break pair; the range end if it never broke.
@@ -140,9 +146,11 @@ def rasterize_tiles_torch(binned: B.BinnedSplats, cfg: RasterConfig,
 def rasterize_backward_torch(features: torch.Tensor, starts: torch.Tensor,
                              ends: torch.Tensor, gout: torch.Tensor,
                              t_n: torch.Tensor, nc: torch.Tensor,
-                             cfg: RasterConfig) -> torch.Tensor:
+                             cfg: RasterConfig,
+                             tile_offset: int = 0) -> torch.Tensor:
     """Gradient of the strict forward with respect to the (16, P) pair
-    table: dfeat (16, P) f32, rows 9-15 zero.
+    table: dfeat (16, P) f32, rows 9-15 zero. Local tile t lies at global
+    flat id tile_offset + t, as in rasterize_tiles_torch.
 
     gout (T, NPIX, 4) is the cotangent of the tile buffers; t_n = 1 - alpha
     and nc (both (T, NPIX) f32) are what the aux forward saved. Each range
@@ -167,7 +175,7 @@ def rasterize_backward_torch(features: torch.Tensor, starts: torch.Tensor,
         ends = torch.minimum(ends, starts + nc_i.amax(dim=1))
     lens = (ends - starts).clamp_min(0)
     steps = int(lens.max()) if num_tiles else 0
-    px, py = _tile_pixels(cfg, num_tiles, device)
+    px, py = _tile_pixels(cfg, num_tiles, device, tile_offset)
     u0, u1, u2, g_a = gout.unbind(-1)                       # (T, NPIX) each
     bg = cfg.background
     g_tn = ((bg[0] * u0 + bg[1] * u1 + bg[2] * u2) - g_a) * t_n
@@ -265,12 +273,15 @@ def _walked_pairs(binned: B.BinnedSplats, cfg: RasterConfig,
 
 
 def surviving_pairs(binned: B.BinnedSplats, cfg: RasterConfig,
-                    nc: torch.Tensor) -> tuple[int, int]:
+                    nc: torch.Tensor,
+                    tile_offset: int = 0) -> tuple[int, int]:
     """(walked, surviving): the (tile, pair) steps of the walk that
-    _walked_pairs describes, and those the kernels' tile cull keeps."""
+    _walked_pairs describes, and those the kernels' tile cull keeps (local
+    tile t at global flat id tile_offset + t)."""
     tiles, pos = _walked_pairs(binned, cfg, nc)
-    x0 = ((tiles % cfg.tiles_x) * cfg.tile_width).to(torch.float32)
-    y0 = ((tiles // cfg.tiles_x) * cfg.tile_height).to(torch.float32)
+    gtid = tiles + tile_offset
+    x0 = ((gtid % cfg.tiles_x) * cfg.tile_width).to(torch.float32)
+    y0 = ((gtid // cfg.tiles_x) * cfg.tile_height).to(torch.float32)
     culled = tile_cull_torch(binned.features[:B.FEAT_OPACITY + 1, pos], x0,
                              x0 + (cfg.tile_width - 1), y0,
                              y0 + (cfg.tile_height - 1), cfg.alpha_min)
@@ -278,16 +289,18 @@ def surviving_pairs(binned: B.BinnedSplats, cfg: RasterConfig,
 
 
 def live_evaluations(binned: B.BinnedSplats, cfg: RasterConfig,
-                     nc: torch.Tensor, batch: int = 2048) -> int:
+                     nc: torch.Tensor, batch: int = 2048,
+                     tile_offset: int = 0) -> int:
     """The (pair, pixel) evaluations that do work in the compositing
     kernels: power <= 0, alpha >= alpha_min and position < start + nc of
     the pixel, with the rasterizer's own f32 arithmetic. nc is the
-    (T, NPIX) contributor count of the strict aux forward."""
+    (T, NPIX) contributor count of the strict aux forward; local tile t
+    lies at global flat id tile_offset + t."""
     tiles, pos = _walked_pairs(binned, cfg, nc)
     table = binned.features
     starts = binned.tile_starts.to(torch.int64)
     limit = starts[:, None] + nc.to(torch.int64)            # (T, NPIX)
-    px, py = _tile_pixels(cfg, nc.shape[0], nc.device)
+    px, py = _tile_pixels(cfg, nc.shape[0], nc.device, tile_offset)
     total = 0
     for i in range(0, tiles.shape[0], batch):
         t, q = tiles[i:i + batch], pos[i:i + batch]

@@ -52,7 +52,12 @@ make them once, outside any capture.
 
 On the CPU (`device="cpu"`) a program is stored as it is and `run` calls it
 eagerly; nothing is captured. On CUDA there is no such fallback: a
-function that cannot be captured makes `register` raise.
+function that cannot be captured makes `register` raise. The one program
+that runs eagerly on CUDA is one registered with a reason for it
+(`eager=`): a sharded program over a mesh whose shards sit on several
+devices (parallel/distributed.py), whose peer copies a graph on one device
+does not capture. The reason is logged at registration and shows in the
+manifest.
 """
 
 from __future__ import annotations
@@ -134,6 +139,7 @@ class CompiledProgram:
     out_leaves: tuple = ()          # flattened captured outputs
     out_spec: Any = None
     grad: bool = False              # runs with autograd (a train step)
+    eager: str = ""                 # why it runs uncaptured on CUDA
 
 
 class RenderEngine:
@@ -152,7 +158,7 @@ class RenderEngine:
         log.info("engine device: %s", self.device)
 
     def register(self, name: str, fn: Callable, example_args: tuple,
-                 grad: bool = False) -> CompiledProgram:
+                 grad: bool = False, eager: str = "") -> CompiledProgram:
         """Capture `fn(*example_args)` into a CUDA graph (on the CPU: store
         `fn`). Every tensor in example_args must lie on the engine's
         device; those tensors become the graph's static inputs. Raises if
@@ -161,7 +167,8 @@ class RenderEngine:
         restored after the capture. A rate-limited heartbeat logs the
         elapsed time of long registrations (the reference's compile
         progress filter, engine.py:104-126). A program already registered
-        under `name` is released first (module docstring)."""
+        under `name` is released first (module docstring). eager: a reason
+        to store fn uncaptured on CUDA too, logged (module docstring)."""
         self.release(name)
         leaves, spec = pytree.tree_flatten(tuple(example_args))
         for leaf in leaves:
@@ -172,8 +179,10 @@ class RenderEngine:
                                      f"{self.device}")
         prog = CompiledProgram(name=name, fn=fn, compile_seconds=0.0,
                                in_leaves=tuple(leaves), in_spec=spec,
-                               grad=grad)
-        if self.device.type == "cuda":
+                               grad=grad, eager=eager)
+        if eager:
+            log.info("program '%s' runs eagerly: %s", name, eager)
+        elif self.device.type == "cuda":
             t0 = time.perf_counter()
             done = threading.Event()
 
@@ -297,7 +306,8 @@ class RenderEngine:
         return json.dumps({
             "programs": {
                 n: {"compile_seconds": round(p.compile_seconds, 3),
-                    "cuda_graph": p.graph is not None}
+                    "cuda_graph": p.graph is not None,
+                    **({"eager": p.eager} if p.eager else {})}
                 for n, p in self.programs.items()
             },
             "device": str(self.device),

@@ -222,12 +222,14 @@ def loss_mix_scale(model: GaussianModel, camera: Camera,
 
 
 def make_train_step(raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
-                    depth_weight: float = 0.0):
+                    depth_weight: float = 0.0, render_fn=render):
     """The train step that also accumulates the densification statistics:
     step(state, grad_sum, vis_count, camera, target[, obs, mask]) -> loss,
     updating the state and both statistics in place. With depth_weight > 0
     it adds the sparse depth term (train/depth.py) on the view's (K, 3)
-    observations and (K,) mask."""
+    observations and (K,) mask. render_fn(params, camera, cfg, xy_probe=)
+    -> an output with .image and .visible: the single-device render by
+    default (parallel/distributed.py passes the sharded one)."""
     def step(state: trainer.TrainState, grad_sum: torch.Tensor,
              vis_count: torch.Tensor, camera: Camera, target: torch.Tensor,
              obs: Optional[torch.Tensor] = None,
@@ -235,7 +237,7 @@ def make_train_step(raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
         params = state.params
         probe = torch.zeros((params.num_gaussians, 2), dtype=torch.float32,
                             device=params.device, requires_grad=True)
-        out = render(params, camera, raster_cfg, xy_probe=probe)
+        out = render_fn(params, camera, raster_cfg, xy_probe=probe)
         loss = losses.render_loss(out.image, target, train_cfg.ssim_weight)
         if depth_weight > 0.0:
             loss = loss + depth_weight * depth.sparse_depth_loss(
@@ -259,18 +261,22 @@ def register_step(engine: RenderEngine, state: trainer.TrainState,
                   dstate: DensifyState, camera: Camera, target: torch.Tensor,
                   raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
                   depth_weight: float = 0.0, view_idx=None, obs_all=None,
-                  mask_all=None, name: str = STEP_PROGRAM):
+                  mask_all=None, name: str = STEP_PROGRAM, step_fn=None,
+                  eager: str = ""):
     """Register the densify step as a train program (grad=True): fn(state,
     grad_sum, vis_count, camera, target) -> loss, or with depth_weight > 0
     fn(state, grad_sum, vis_count, view_idx, camera, target, obs_all,
     mask_all) -> loss, the () view index picking the view's packed
     observations inside the program. Only the tensors the step touches are
-    inputs: never the alive mask or the key."""
-    step = make_train_step(raster_cfg, train_cfg, depth_weight)
+    inputs: never the alive mask or the key. step_fn replaces the step
+    (without depth: the sharded one of parallel/distributed.py); eager:
+    see RenderEngine.register."""
+    step = step_fn or make_train_step(raster_cfg, train_cfg, depth_weight)
     cam, tgt = trainer.static_copies(camera, target)
     stats = (state, dstate.grad_sum, dstate.vis_count)
     if depth_weight <= 0.0:
-        return engine.register(name, step, (*stats, cam, tgt), grad=True)
+        return engine.register(name, step, (*stats, cam, tgt), grad=True,
+                               eager=eager)
 
     def program(state, grad_sum, vis_count, view_idx, camera, target,
                 obs_all, mask_all):

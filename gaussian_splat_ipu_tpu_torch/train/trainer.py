@@ -145,9 +145,12 @@ def init_state(model: GaussianModel,
 
 
 def loss_fn(params: GaussianModel, camera: Camera, target: torch.Tensor,
-            raster_cfg: RasterConfig, train_cfg: TrainConfig
-            ) -> torch.Tensor:
-    image = render_image(params, camera, raster_cfg)
+            raster_cfg: RasterConfig, train_cfg: TrainConfig,
+            image_fn=render_image) -> torch.Tensor:
+    """The render loss of `image_fn(params, camera, raster_cfg)`, the
+    single-device render by default (parallel/distributed.py passes the
+    sharded one)."""
+    image = image_fn(params, camera, raster_cfg)
     return losses.render_loss(image, target, train_cfg.ssim_weight)
 
 
@@ -225,11 +228,12 @@ def apply_param_updates(params: GaussianModel, grads: dict,
 
 
 def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
-               raster_cfg: RasterConfig, train_cfg: TrainConfig):
+               raster_cfg: RasterConfig, train_cfg: TrainConfig,
+               image_fn=render_image):
     """One forward + backward + update step. Updates `state` in place and
     returns (state, loss), loss a () device tensor."""
     params = state.params
-    loss = loss_fn(params, camera, target, raster_cfg, train_cfg)
+    loss = loss_fn(params, camera, target, raster_cfg, train_cfg, image_fn)
     grads = torch.autograd.grad(loss, tuple(params.parameters()))
     apply_param_updates(params, dict(zip(FIELDS, grads)), state.opt_state,
                         train_cfg)
@@ -242,19 +246,24 @@ STEP_PROGRAM = "train_step"
 
 def register_step(engine: RenderEngine, state: TrainState, camera: Camera,
                   target: torch.Tensor, raster_cfg: RasterConfig,
-                  train_cfg: TrainConfig, name: str = STEP_PROGRAM):
+                  train_cfg: TrainConfig, name: str = STEP_PROGRAM,
+                  step_fn=None, eager: str = ""):
     """Register train_step on `engine` as a train program (grad=True),
     fn(state, camera, target) -> the () loss: on CUDA captured, with
     `state` as it was afterwards. The state is the registered object, so
     `engine.run(name, state, camera, target)` updates it in place and
     hands back only the loss, no copy of the parameters; the camera and
-    target are copies, the static inputs each run copies into."""
+    target are copies, the static inputs each run copies into. step_fn
+    replaces train_step (the sharded step of parallel/distributed.py);
+    eager: see RenderEngine.register."""
     def step(state: TrainState, camera: Camera, target: torch.Tensor):
+        if step_fn is not None:
+            return step_fn(state, camera, target)[1]
         return train_step(state, camera, target, raster_cfg, train_cfg)[1]
 
     return engine.register(name, step, (state, *static_copies(camera,
                                                               target)),
-                           grad=True)
+                           grad=True, eager=eager)
 
 
 def static_copies(camera: Camera, target: torch.Tensor):

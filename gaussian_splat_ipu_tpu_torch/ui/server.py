@@ -205,8 +205,8 @@ class InterfaceServer:
                        exchange_overflow: int = 0) -> None:
         """Per-tile counts plus drop telemetry: `overflow` pairs lost to
         the pair table, `truncated` past the per-tile work bound,
-        `exchange_overflow` on the distributed path (0 here: not
-        ported)."""
+        `exchange_overflow` at the all_to_all buckets of the distributed
+        path (app/main.py --distributed; 0 on one device)."""
         payload = json.dumps(
             {"counts": np.asarray(counts).tolist(),
              "overflow": int(overflow),

@@ -108,11 +108,11 @@ class RuntimeConfig:
 
     `device` takes the place of use_cpu_model: "cuda" runs the programs as
     CUDA graphs on the card, "cpu" runs them eagerly on the CPU. Left out,
-    having no counterpart in the port: num_devices (the distributed path
-    is not ported), exe_name and compile_only (there is no executable to
-    name or to stop after: a CUDA graph is captured and replayed in one
-    process) and donate_buffers (a graph's static inputs are reused every
-    replay, which is what donation bought XLA)."""
+    having no counterpart in the port: num_devices (the CLIs' --distributed
+    makes the mesh, parallel/mesh.py), exe_name and compile_only (there is
+    no executable to name or to stop after: a CUDA graph is captured and
+    replayed in one process) and donate_buffers (a graph's static inputs
+    are reused every replay, which is what donation bought XLA)."""
 
     device: str = "cuda"
     # Directory of the app's pair-capacity probe cache ("" = no cache).

@@ -1,8 +1,8 @@
 """The port's CLI (gaussian_splat_ipu_tpu_torch.app.main) on the CPU: the
 PNG it writes equals the port's render at the app's camera, the demand
 probe sizes the table and its cache is read back, --rowseg and any
---frames-in-flight render the same frames, unported flags are refused,
-and scene loading matches the JAX package's."""
+--frames-in-flight render the same frames, --distributed with the points
+program is refused, and scene loading matches the JAX package's."""
 
 import json
 import os
@@ -85,12 +85,15 @@ def test_cli_rowseg_png_matches_flat(ply, tmp_path):
     assert pngs[1][..., 3].max() > 0
 
 
-@pytest.mark.parametrize("flags", [["--distributed", "4"]])
-def test_cli_rejects_unported_flags(ply, flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        app.parse_args(["--input", ply] + flags)
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [["--distributed", "4", "--device",
+                                    "points"]])
+def test_cli_rejects_unported_flags(ply, flags, tmp_path):
+    """--distributed runs the splat pipeline only: the points program has
+    no sharded form (the reference refuses the pair too)."""
+    assert app.parse_args(["--input", ply] + flags).distributed == 4
+    with pytest.raises(SystemExit, match="requires the splat pipeline"):
+        app.run(["--input", ply, "--output", str(tmp_path / "o.png")]
+                + flags)
 
 
 def test_cli_cuda_without_a_card_fails(ply, tmp_path):

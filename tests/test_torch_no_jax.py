@@ -109,6 +109,34 @@ CHILD = textwrap.dedent("""
     d = depth.sparse_depth_loss(model, cam, obs, torch.ones(2, dtype=bool),
                                 cfg)
     assert bool(torch.isfinite(d))
+
+    from gaussian_splat_ipu_tpu_torch.app import main as app_main
+    from gaussian_splat_ipu_tpu_torch.app import train as app_train
+    from gaussian_splat_ipu_tpu_torch.io.scene import write_ply
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
+    msh = mesh_lib.make_mesh(2, device="cpu")
+    sm = mesh_lib.shard_model(model, msh)
+    so = distributed.render_sharded(sm, cam, cfg, msh, pair_capacity=2048)
+    assert float((so.image - out.image).abs().max()) <= 1e-5
+    assert int(so.exchange_overflow) == 0
+    views = distributed.render_views_sharded(
+        sm, [cam, cam], cfg, mesh_lib.make_mesh_2d(2, 1, device="cpu"))
+    assert views.shape == (2, 32, 48, 4)
+    st = trainer.init_state(sm.trainable(), tc)
+    _, loss = distributed.make_sharded_train_step(msh, cfg, tc)(
+        st, cam, out.image * 0.5)
+    assert bool(torch.isfinite(loss)) and int(st.step) == 1
+    td = tempfile.mkdtemp()
+    write_ply(os.path.join(td, "s.ply"), model)
+    small = ["--input", os.path.join(td, "s.ply"), "--device", "cpu",
+             "--width", "48", "--height", "32", "--pair-capacity", "2048",
+             "--log-level", "off"]
+    assert app_main.run(small + ["--distributed", "2", "--output",
+                                 os.path.join(td, "o.png")])["shards"] == 2
+    got = app_train.run(small + ["--views", "2", "--steps", "2",
+                                 "--distributed", "2", "--view-batch", "2"])
+    assert got["shards"] == 2 and got["step"] == 1
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
     assert not any(k == REF or k.startswith(REF + ".") for k in sys.modules)
     print("OK")

@@ -280,7 +280,12 @@ def test_transforms_rgba_white_background_random_init(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["--view-batch", "2"]])
-def test_unported_flags_are_refused(flags, capsys):
+def test_unported_flags_are_refused(flags, capsys, monkeypatch):
+    """--distributed and --view-batch train in one process (tests/
+    test_torch_distributed_app.py); a multi-process run, which the
+    GSPLAT_COORDINATOR environment asks for, is refused."""
+    assert app.parse_args(["--input", "x.ply", *flags]).input == "x.ply"
+    monkeypatch.setenv("GSPLAT_COORDINATOR", "127.0.0.1:29500")
     with pytest.raises(SystemExit):
         app.parse_args(["--input", "x.ply", *flags])
     err = capsys.readouterr().err

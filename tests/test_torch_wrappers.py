@@ -90,22 +90,23 @@ def scan_matches_at_awkward_shapes(device):
 KW = dict(tw=32.0, th=32.0, alpha_min=1.0 / 255.0)
 
 
-def raster_kernels_match(binned, cfg):
+def raster_kernels_match(binned, cfg, tile_offset=0):
     """Kernel C in its three modes and kernel D against their plain
-    versions on one binned frame."""
+    versions on one binned frame (or strip, at its tile offset)."""
     for strict in (True, False):
         c = dataclasses.replace(cfg, strict_termination=strict)
-        got = rasterize.rasterize_tiles(binned, c)
-        want = rasterize_tiles_torch(binned, c)
+        got = rasterize.rasterize_tiles(binned, c, tile_offset)
+        want = rasterize_tiles_torch(binned, c, tile_offset=tile_offset)
         assert float((got - want).abs().max()) <= 1e-5
-    tiles, nc = rasterize.rasterize_tiles_aux(binned, cfg)
-    want, want_nc = rasterize_tiles_torch(binned, cfg, need_aux=True)
+    tiles, nc = rasterize.rasterize_tiles_aux(binned, cfg, tile_offset)
+    want, want_nc = rasterize_tiles_torch(binned, cfg, need_aux=True,
+                                          tile_offset=tile_offset)
     assert float((tiles - want).abs().max()) <= 1e-5
     assert torch.equal(nc, want_nc)
     gen = torch.Generator(device="cuda").manual_seed(0)
     args = (binned.features, binned.tile_starts, binned.tile_ends,
             torch.randn(want.shape, generator=gen, device="cuda"),
-            1.0 - want[..., 3], want_nc, cfg)
+            1.0 - want[..., 3], want_nc, cfg, tile_offset)
     got = rasterize.rasterize_backward(*args)
     ref = rasterize_backward_torch(*args)
     # Atomics reorder the sums: bound each row by its own scale.
@@ -182,3 +183,26 @@ def test_kernels_match_plain_versions_on_the_card():
                                  "rasterize_relaxed": 2,
                                  "rasterize_strict_aux": 2,
                                  "rasterize_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_raster_kernels_match_at_a_tile_offset_on_the_card():
+    """Kernels C and D on the last of 3 strips (tile rows 4-5 of 6, offset
+    40) and on a grouped strip (tile_group 3, rows 3-5, offset 30), against
+    their plain versions at the same offset: C to the whole-grid bar, D
+    within the row-scaled bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode "
+                    "(chip_smoke.py phase 15 runs this at full size)")
+    with torch.inference_mode():
+        splats = splats_on("cuda")
+        cases = [(CFG, 4, 2), (dataclasses.replace(CFG, tile_group=3), 3, 3)]
+        cuda_lib.launches.clear()
+        for cfg, row_lo, rows in cases:
+            binned = binning.bin_splats(splats, cfg, row_lo, rows, 4096)
+            assert int((binned.tile_ends - binned.tile_starts).sum()) > 0
+            raster_kernels_match(binned, cfg, row_lo * cfg.tiles_x)
+        with pytest.raises(ValueError, match="whole number"):
+            rasterize.rasterize_tiles(binned, CFG, 3)
+        torch.cuda.synchronize()
+    assert cuda_lib.launches["rasterize_bwd"] == 2
