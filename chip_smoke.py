@@ -145,14 +145,35 @@ Phases, each printing its own lines:
      --view-batch in distill mode (no drops, loss falling); (f)
      MH_PROCESSES processes sharing cuda:0 over gloo (parallel/
      multihost.py; this script with --mh-child) load their shards of the
-     app's PLY and render a frame equal to the one-process render.
-The launch counters are zeroed just before each of phases 3-15 and read
-just after it: every kernel must have carried the path that uses it. The
-apps (phases 3, 6, 8, 12, 13, 14, 15) run their frames and steps as graph
-replays, which launch through no wrapper: a kernel of a captured program
-counts engine.WARMUP_CALLS + 1 launches (warm-up and capture) however
-many frames or steps are replayed, and the engine phase checks that
-replays count 0.
+     app's PLY and render a frame equal to the one-process render; then
+     (this script with --mh-train) train with app/train.py --distributed,
+     one shard per process, every program eager: the train app cell's
+     distill run (MH_STEPS steps, a checkpoint and a PLY) and a
+     --densify run (events at steps 4 and 8, births at both), each held
+     to the one-process --distributed run (captured) made here: every
+     step's loss within MH_LOSS_RTOL, the events' steps and alive counts
+     equal, nothing dropped, only the primary's checkpoint written; the
+     eager pipelined ms a step of each process;
+ 16. kernels C and D against the dense oracle (render/oracle.py) on
+     ORACLE_GAUSSIANS seeded gaussians at ORACLE_W x ORACLE_H: C strict,
+     C-aux and the DIST_SHARDS-shard frame (C at tile offsets) within
+     ORACLE_TOL of the oracle's image; D's model gradients within
+     ORACLE_GRAD_TOL of autograd through the oracle on a black
+     background; the error at a white background reported only;
+ 17. utils/profiling.trace() around TRACE_FRAMES replayed app frames
+     (exact tiles), each inside a Tracepoint: the Chrome trace names
+     kernels A, B and C and the Tracepoint's range.
+Each phase runs inside a Tracepoint named after it; their host seconds
+(profiling.tracepoint_summary) are printed after phase 17.
+The launch counters are zeroed just before each of phases 3-15 and 17
+and read just after it: every kernel must have carried the path that uses
+it (phase 16 compares kernels with the oracle, and its launches are
+reported apart). The apps (phases 3, 6, 8, 12, 13, 14, 15, 17) run their
+frames and steps as graph replays, which launch through no wrapper: a
+kernel of a captured program counts engine.WARMUP_CALLS + 1 launches
+(warm-up and capture) however many frames or steps are replayed, and the
+engine phase checks that replays count 0. Processes this script starts
+launch in their own counters, reported in their phase's line.
 Neither jax nor the JAX package (gaussian_splat_ipu_tpu) may be imported.
 Then one JSON line of per-kernel results, the card line, and last the
 status line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -163,6 +184,7 @@ thread's stack).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import faulthandler
@@ -265,9 +287,33 @@ DIST_VB_MESH = (2, 2)
 DIST_VB_VIEWS = 4
 DIST_EPOCHS = 2
 # Multi-process phase: processes sharing cuda:0 over gloo, and each one's
-# time limit.
+# time limit. Training: the train app cell's distill run for MH_STEPS steps;
+# the densify run over MH_DENSIFY_VIEWS views (an event each epoch, at steps
+# 4 and 8) with a threshold nearly every visible gaussian passes, in a slot
+# buffer of MH_CAPACITY_X x the scene; every step's loss held to the
+# one-process --distributed run's within MH_LOSS_RTOL (kernel D's atomics
+# reorder the gradient sums, so not bit for bit).
 MH_PROCESSES = 2
 MH_TIMEOUT_S = 300
+MH_STEPS = 6
+MH_DENSIFY_VIEWS = 4
+MH_DENSIFY_STEPS = 8
+MH_DENSIFY_THRESHOLD = 1e-7
+MH_CAPACITY_X = 4
+MH_LOSS_RTOL = 1e-4
+# Oracle phase: a scene at tests/test_backward_kernel.py:53-61's density
+# (192 gaussians over 64x64) at 160x128, held to render/oracle.py at the
+# tiled render's bar (tests/test_tile_raster.py:45) and the backward's
+# (tests/test_backward_kernel.py:61). Footprints reach the full alpha_min
+# radius (extent_sigma 0, tests/test_tile_raster.py:120-133): at 3 sigma
+# the tiled render cuts a near-opaque splat's tail, which the oracle, with
+# no footprint, composites: C strict then fails the bar on this scene.
+ORACLE_W, ORACLE_H = 160, 128
+ORACLE_GAUSSIANS = 960
+ORACLE_TOL = dict(atol=2e-5, rtol=1e-4)
+ORACLE_GRAD_TOL = dict(atol=2e-4, rtol=1e-3)
+# Trace phase: app frames replayed under profiling.trace().
+TRACE_FRAMES = 3
 # A run still going after this many seconds prints every thread's stack and
 # exits non-zero (the run's limit is 1200 s).
 DEADLINE_S = 1140
@@ -1901,39 +1947,51 @@ def mh_child(rank: str, world: str, coord: str, ply: str, out: str) -> int:
     return 0
 
 
+def run_processes(label: str, args_of_rank) -> float:
+    """Start MH_PROCESSES copies of this script, process r with
+    args_of_rank(r, coord), coord a free local port for the group; wait
+    for all, each within MH_TIMEOUT_S (on a time-out every process is
+    killed). Fails with a process's stderr if one exits non-zero. Returns
+    the wall seconds."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args_of_rank(r, coord)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MH_PROCESSES)]
+    try:
+        logs = [p.communicate(timeout=MH_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1][-2000:] for p in procs]
+        fail(f"{label}: a process outlived {MH_TIMEOUT_S} s: {errs}")
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"{label}: process {r} exited {p.returncode}: "
+                 f"{err[-2000:]}")
+    return time.perf_counter() - t0
+
+
 def mh_phase(tmp: str, ply_path: str, dev) -> dict:
     """15 (f): MH_PROCESSES processes sharing cuda:0 over gloo
     (parallel/multihost.py) each load their shard of the app's PLY and
     render the frame; every process's image equals the one-process render
     over a mesh of as many shards on cuda:0, pairs equal, nothing
     dropped."""
-    import socket
-
     import torch
     from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
     from gaussian_splat_ipu_tpu_torch.parallel import distributed
     from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
     out = tempfile.mkdtemp(dir=tmp, prefix="mh_")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        coord = f"127.0.0.1:{s.getsockname()[1]}"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mh-child", str(r),
-         str(MH_PROCESSES), coord, ply_path, out], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(MH_PROCESSES)]
-    try:
-        logs = [p.communicate(timeout=MH_TIMEOUT_S) for p in procs]
-    except subprocess.TimeoutExpired:
-        fail(f"multi-process: a process outlived {MH_TIMEOUT_S} s")
-    finally:
-        for p in procs:
-            p.kill()
-    wall_s = time.perf_counter() - t0
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            fail(f"multi-process: process {r} exited {p.returncode}: "
-                 f"{err[-2000:]}")
+    wall_s = run_processes("multi-process render", lambda r, coord: [
+        "--mh-child", str(r), str(MH_PROCESSES), coord, ply_path, out])
     got = [np.load(os.path.join(out, f"rank{r}.npz"))
            for r in range(MH_PROCESSES)]
     cfg = mh_cfg()
@@ -1958,8 +2016,294 @@ def mh_phase(tmp: str, ply_path: str, dev) -> dict:
                 lit_pixels=int((image[..., 3] > 0).sum()), wall_s=wall_s)
 
 
+MH_TRAIN_KEYS = ("losses", "step_ms", "pipelined_ms", "events",
+                 "final_loss", "psnr", "step", "num_gaussians",
+                 "final_alive", "shards", "processes", "final_overflow",
+                 "final_truncated", "target_overflow", "num_pairs")
+
+
+def mh_train_child(rank: str, world: str, coord: str, out: str,
+                   *argv) -> int:
+    """One process of phase 15 (f)'s training: app/train.py's run() in a
+    group of `world` processes ("{rank}" in an argument becomes the rank),
+    its statistics, the group's backend and the kernel launches it made
+    saved as JSON."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.parallel import multihost
+    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+    import gaussian_splat_ipu_tpu_torch.app.train as app_train
+    os.environ.update(GSPLAT_COORDINATOR=coord, GSPLAT_NUM_PROCESSES=world,
+                      GSPLAT_PROCESS_ID=rank)
+    assert multihost.initialize(device="cuda")
+    backend = torch.distributed.get_backend()
+    cuda_lib.launches.clear()
+    stats = app_train.run([a.replace("{rank}", rank) for a in argv])
+    with open(out, "w") as f:
+        json.dump(dict({k: stats[k] for k in MH_TRAIN_KEYS},
+                       backend=backend, launches=dict(cuda_lib.launches)), f)
+    return 0
+
+
+def mh_train(tmp: str, label: str, argv: list) -> list:
+    """The train CLI in MH_PROCESSES processes on cuda:0: each one's
+    statistics."""
+    outs = [os.path.join(tmp, f"{label}_{r}.json")
+            for r in range(MH_PROCESSES)]
+    wall_s = run_processes(f"multi-process {label}", lambda r, coord: [
+        "--mh-train", str(r), str(MH_PROCESSES), coord, outs[r], *argv])
+    got = []
+    for path in outs:
+        with open(path) as f:
+            got.append(dict(json.load(f), wall_s=wall_s))
+    return got
+
+
+def loss_rel_err(got: list, want: list) -> float:
+    if len(got) != len(want):
+        return float("inf")
+    g, w = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(g - w) / np.abs(w)))
+
+
+def mh_train_phase(tmp: str, ply_path: str, launches: dict,
+                   cuda_lib) -> dict:
+    """15 (f), training: MH_PROCESSES processes sharing cuda:0 over gloo
+    run app/train.py --distributed (one shard each, every program eager)
+    in the train app cell's distill mode, with a checkpoint and a PLY,
+    then with --densify (events at steps 4 and 8); each held to the
+    one-process --distributed MH_PROCESSES run (captured) made here:
+    every step's loss within MH_LOSS_RTOL, the events' steps and alive
+    counts equal, no pair or exchange row dropped, only the primary's
+    checkpoint written, the PLY's row count equal."""
+    import gaussian_splat_ipu_tpu_torch.app.train as app_train
+    from gaussian_splat_ipu_tpu_torch.io import ply as ply_io
+    out = tempfile.mkdtemp(dir=tmp, prefix="mh_train_")
+    common = ["--input", ply_path, "--mode", "distill", "--width",
+              str(TRAIN_W), "--height", str(TRAIN_H), "--device", "cuda",
+              "--seed", str(SEED), "--log-level", "warn"]
+    n = str(MH_PROCESSES)
+    runs = {
+        "distill": common + ["--views", str(TRAIN_VIEWS), "--steps",
+                             str(MH_STEPS)],
+        "densify": common + [
+            "--views", str(MH_DENSIFY_VIEWS), "--steps",
+            str(MH_DENSIFY_STEPS), "--densify", "--densify-from",
+            str(MH_DENSIFY_VIEWS), "--densify-every", str(MH_DENSIFY_VIEWS),
+            "--densify-grad-threshold", str(MH_DENSIFY_THRESHOLD),
+            "--capacity", str(MH_CAPACITY_X * APP_GAUSSIANS)]}
+    facts = {}
+    for name, argv in runs.items():
+        files = ["--checkpoint", os.path.join(out, name + "_{rank}.npz"),
+                 "--export-ply", os.path.join(out, name + "_mp.ply")]
+        got = mh_train(out, name, argv + ["--distributed"] + files)
+        one_ck = os.path.join(out, name + "_one.npz")
+        one_ply = os.path.join(out, name + "_one.ply")
+        want, launches[f"mh train {name} one process"] = counted(
+            cuda_lib, lambda: app_train.run(argv + [
+                "--distributed", n, "--checkpoint", one_ck, "--export-ply",
+                one_ply]))
+        errs = [loss_rel_err(g["losses"], want["losses"]) for g in got]
+        events = [[(e["step"], e["alive"]) for e in g["events"]]
+                  for g in got]
+        want_events = [(e["step"], e["alive"]) for e in want["events"]]
+        drops = [(e["overflow"], e["exchange_overflow"])
+                 for g in got for e in g["events"]]
+        shape = [(g["processes"], g["shards"], g["num_gaussians"],
+                  g["final_overflow"], max(g["target_overflow"]))
+                 for g in got]
+        if (max(errs) > MH_LOSS_RTOL
+                or any(e != want_events for e in events)
+                or any(any(d) for d in drops)
+                or any(s != (MH_PROCESSES, MH_PROCESSES,
+                             want["num_gaussians"], 0, 0) for s in shape)):
+            fail(f"multi-process train {name}: loss rel. err. {errs} (bar "
+                 f"{MH_LOSS_RTOL}), events {events} vs {want_events}, drops "
+                 f"{drops}, (processes, shards, slots, final and target "
+                 f"overflow) {shape}")
+        if name == "densify" and not (
+                [s for s, _ in want_events] == [MH_DENSIFY_VIEWS,
+                                                MH_DENSIFY_STEPS]
+                and APP_GAUSSIANS < want_events[0][1] < want_events[1][1]):
+            fail(f"multi-process train densify: events {want_events}, "
+                 "expected births at steps 4 and 8")
+        written = [os.path.exists(os.path.join(out, f"{name}_{r}.npz"))
+                   for r in range(MH_PROCESSES)]
+        with np.load(os.path.join(out, name + "_0.npz")) as a, \
+                np.load(one_ck) as b:
+            same_layout = (sorted(a.files) == sorted(b.files) and all(
+                a[k].shape == b[k].shape for k in a.files))
+            param_err = max(float(np.abs(a[f"leaf_{i}"]
+                                         - b[f"leaf_{i}"]).max())
+                            for i in range(5))
+        rows = [ply_io.count_vertices(p) for p in
+                (os.path.join(out, name + "_mp.ply"), one_ply)]
+        if written != [True] + [False] * (MH_PROCESSES - 1) \
+                or not same_layout or rows[0] != rows[1]:
+            fail(f"multi-process train {name}: checkpoints written "
+                 f"{written}, layout equal {same_layout}, PLY rows {rows}")
+        facts[name] = dict(
+            backend=got[0]["backend"], steps=len(want["losses"]),
+            loss_max_rel_err=max(errs), loss_rtol=MH_LOSS_RTOL,
+            losses=got[0]["losses"], one_process_losses=want["losses"],
+            events=[g["events"] for g in got][0],
+            one_process_events=want["events"],
+            final_loss=[g["final_loss"] for g in got],
+            psnr=[g["psnr"] for g in got], one_process_psnr=want["psnr"],
+            slots=want["num_gaussians"], final_alive=want["final_alive"],
+            checkpoint_param_max_abs_diff=param_err, ply_rows=rows[0],
+            median_pipelined_ms_eager=[
+                float(np.median(g["pipelined_ms"])) for g in got],
+            median_step_ms_eager=[float(np.median(g["step_ms"]))
+                                  for g in got],
+            one_process_median_pipelined_ms_replayed=float(
+                np.median(want["pipelined_ms"])),
+            wall_s=got[0]["wall_s"],
+            process_launches=[g["launches"] for g in got])
+    return facts
+
+
+def oracle_phase(dev, cuda_lib) -> dict:
+    """16: kernels C and D against the dense oracle (render/oracle.py) on
+    ORACLE_GAUSSIANS seeded gaussians at ORACLE_W x ORACLE_H on the card,
+    footprints at the full alpha_min radius:
+    the strict frame (C) and the strict frame with contributor counts
+    (C-aux) within ORACLE_TOL of the oracle's image; D's model gradients
+    of a seeded pixel-weighted sum, through the tiled render under
+    autograd, within ORACLE_GRAD_TOL of autograd through the oracle on a
+    black background; the frame rendered over DIST_SHARDS shards of
+    cuda:0 (C at each strip's tile offset) within ORACLE_TOL of the
+    oracle. At a white background the gradient error is reported only
+    (the reference's backward kernel exceeds the bar against its spec on
+    dense scenes with a nonzero background)."""
+    import dataclasses as dc
+
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import (
+        FIELDS, GaussianModel)
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed
+    from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
+    from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
+    from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
+    from gaussian_splat_ipu_tpu_torch.render.oracle import render_oracle
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+
+    def excess(got, ref, tol) -> tuple:
+        """(max |got - ref|, max of |got - ref| / (atol + rtol |ref|))."""
+        d = (got - ref).abs()
+        return (float(d.max()),
+                float((d / (tol["atol"] + tol["rtol"] * ref.abs())).max()))
+
+    cfg = RasterConfig(image_width=ORACLE_W, image_height=ORACLE_H,
+                       pair_capacity=1 << 16, extent_sigma=0.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = GaussianModel.random(ORACLE_GAUSSIANS, generator=gen, device=dev)
+    weights = torch.randn((ORACLE_H, ORACLE_W, 4), generator=gen,
+                          device=dev)
+    bb = np.ones(3, np.float32)
+    cam = Camera.orbit(-bb, bb, float(np.radians(40.0)),
+                       ORACLE_W / ORACLE_H, rot_y_deg=30.0, device=dev)
+    facts = {}
+    cuda_lib.launches.clear()
+    with torch.inference_mode():
+        ref = render_oracle(model, cam, cfg)
+        out = pipeline.render(model, cam, cfg)
+        binned = binning.bin_splats(project_gaussians(model, cam, cfg), cfg)
+        aux = pipeline._untile_crop(
+            rasterize.rasterize_tiles_aux(binned, cfg)[0], cfg)
+        mesh = mesh_lib.make_mesh(DIST_SHARDS, device="cuda:0")
+        shard = distributed.render_sharded(mesh_lib.shard_model(model, mesh),
+                                           cam, cfg, mesh)
+    for name, img in (("rasterize_strict", out.image),
+                      ("rasterize_strict_aux", aux),
+                      ("sharded_strict", shard.image)):
+        err, ratio = excess(img, ref, ORACLE_TOL)
+        facts[name] = dict(max_abs_err=err, max_err_over_bar=ratio)
+        if ratio > 1.0:
+            fail(f"oracle: {name} differs from the oracle by {err} "
+                 f"({ratio}x the bar {ORACLE_TOL})")
+    if int(out.overflow) or int(out.truncated) or int(shard.overflow) \
+            or int(shard.exchange_overflow):
+        fail("oracle: the tiled render dropped pairs")
+
+    def grads(render_fn, c):
+        m = model.trainable()
+        loss = torch.sum(render_fn(m, cam, c) * weights)
+        return dict(zip(FIELDS, torch.autograd.grad(
+            loss, tuple(m.parameters()))))
+
+    for bg in ("black", "white"):
+        c = dc.replace(cfg, background=(1.0,) * 3 if bg == "white"
+                       else (0.0,) * 3)
+        got = grads(lambda m, cm, f: pipeline.render(m, cm, f).image, c)
+        want = grads(render_oracle, c)
+        per = {k: excess(got[k], want[k], ORACLE_GRAD_TOL) for k in FIELDS}
+        facts[f"rasterize_bwd_{bg}"] = dict(
+            max_abs_err={k: v[0] for k, v in per.items()},
+            max_err_over_bar=max(v[1] for v in per.values()))
+        if bg == "black" and max(v[1] for v in per.values()) > 1.0:
+            fail(f"oracle: D's model gradients differ from autograd "
+                 f"through the oracle beyond {ORACLE_GRAD_TOL}: {per}")
+    return dict(gaussians=ORACLE_GAUSSIANS, width=ORACLE_W,
+                height=ORACLE_H, num_pairs=int(out.num_pairs),
+                shards=DIST_SHARDS, tol=ORACLE_TOL,
+                grad_tol=ORACLE_GRAD_TOL, **facts,
+                launches=dict(cuda_lib.launches))
+
+
+def trace_phase(tmp: str, app_scene, cfg, cam_of, cuda_lib) -> dict:
+    """17: TRACE_FRAMES app frames (exact tiles, so kernels A, B and C
+    run), replayed from the splat program captured in a RenderEngine,
+    under utils/profiling.trace(), each inside a Tracepoint: the Chrome
+    trace must name kernels A, B and C and the Tracepoint's range."""
+    import torch
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
+    from gaussian_splat_ipu_tpu_torch.utils import profiling
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    eng = engine_lib.RenderEngine(RuntimeConfig(device="cuda"))
+    dev = app_scene.model.device
+    c0 = cam_of(0.0)       # on the host: the engine copies each one in
+    eng.register("render", app_main.splat_program(cfg), (
+        app_scene.model, c0.view.to(dev), c0.proj.to(dev),
+        c0.env_rot.to(dev)))
+    log_dir = os.path.join(tmp, "trace")
+    with profiling.trace(log_dir) as prof:
+        for k in range(TRACE_FRAMES):
+            c = cam_of(360.0 * k / TRACE_FRAMES)
+            with profiling.Tracepoint("app_frame"):
+                eng.run("render", app_scene.model, c.view, c.proj,
+                        c.env_rot)
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    want = {"coverage_masks": "coverage_masks_kernel",
+            "stream_expand": "stream_expand_kernel",
+            "rasterize": "rasterize_fwd_kernel"}
+    found = {k: sorted(n for n in kernels if v in n)
+             for k, v in want.items()}
+    ranges = sum(1 for e in events if e.get("name") == "app_frame")
+    if not all(found.values()) or ranges < TRACE_FRAMES:
+        fail(f"trace: kernels {found} or {ranges} app_frame ranges in "
+             f"{path} (kernels seen: {sorted(kernels)[:20]})")
+    device_us = {k.key: float(getattr(k, "self_device_time_total", 0.0)
+                              or 0.0)
+                 for k in prof.key_averages()
+                 if any(v in k.key for v in want.values())}
+    return dict(frames=TRACE_FRAMES, trace_bytes=os.path.getsize(path),
+                kernels=found, app_frame_ranges=ranges,
+                kernel_device_us=device_us, capture_s=eng.programs[
+                    "render"].compile_seconds)
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--mh-train"]:
+        faulthandler.dump_traceback_later(MH_TIMEOUT_S, exit=True)
+        return mh_train_child(*sys.argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", metavar="DIR",
                     help="a directory holding the parent commit's scan.cu "
@@ -1996,6 +2340,14 @@ def main() -> int:
                                                           RuntimeConfig)
     import gaussian_splat_ipu_tpu_torch.app.main as app_main
     import gaussian_splat_ipu_tpu_torch.app.train as app_train
+    from gaussian_splat_ipu_tpu_torch.utils import profiling
+
+    # Each phase is one Tracepoint: the next phase's start closes it.
+    phases = contextlib.ExitStack()
+
+    def phase(name: str):
+        phases.close()
+        phases.enter_context(profiling.Tracepoint(name))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2004,6 +2356,7 @@ def main() -> int:
     cuda_ms = timer.ms
 
     # -- 1. environment -----------------------------------------------------
+    phase("1. environment")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2074,6 +2427,7 @@ def main() -> int:
         say("rowseg_1m_config", **rs_info)
 
         # -- 2. kernels against their plain versions ------------------------
+        phase("2. kernels")
         results = {}
         splats_1m = project_gaussians(model_1m, cam_1m(0.0), cfg_1m)
         x0, y0, nx, ny = binning.cell_footprints(splats_1m, cfg_1m)
@@ -2376,6 +2730,7 @@ def main() -> int:
         say("small_scene_grads_vs_cpu", config=label, max_abs_err=errs)
 
     # -- 3. the app ---------------------------------------------------------
+    phase("3. the app")
     launches = {}
     out_png = os.path.join(tmp, "app.png")
     probe_cache = os.path.join(tmp, "probe_cache")
@@ -2403,6 +2758,7 @@ def main() -> int:
         launches=launches["app"], lit_pixels=int((img[..., 3] > 0).sum()))
 
     # -- 4. the 1M config ---------------------------------------------------
+    phase("4. the 1M config")
     def frames_1m():
         frame_ms, out = [], None
         with torch.inference_mode():
@@ -2435,6 +2791,7 @@ def main() -> int:
         launches=launches["1m"])
 
     # -- 5. the 1M train step -----------------------------------------------
+    phase("5. the 1M train step")
     cam0 = cam_1m(0.0)
     with torch.inference_mode():
         target_out = pipeline.render(model_1m, cam0, cfg_train_1m)
@@ -2483,6 +2840,7 @@ def main() -> int:
     del state, params
 
     # -- 6. the train app ---------------------------------------------------
+    phase("6. the train app")
     ckpt = os.path.join(tmp, "train.npz")
     common = ["--input", ply_path, "--mode", "distill", "--width",
               str(TRAIN_W), "--height", str(TRAIN_H), "--views",
@@ -2535,6 +2893,7 @@ def main() -> int:
         launches=launches["train_app"])
 
     # -- 7. rowseg 1M ---------------------------------------------------------
+    phase("7. rowseg 1M")
     def rowseg_1m():
         frame_ms, images, out = [], [], None
         with torch.inference_mode():
@@ -2605,6 +2964,7 @@ def main() -> int:
     del rs
 
     # -- 8. the app with --rowseg 4 -----------------------------------------
+    phase("8. the app with --rowseg 4")
     out_rs_png = os.path.join(tmp, "app_rowseg.png")
     stats_rs, launches["app_rowseg"] = counted(cuda_lib, lambda: app_main.run([
         "--input", ply_path, "--width", str(WIDTH), "--height", str(HEIGHT),
@@ -2627,6 +2987,7 @@ def main() -> int:
         launches=launches["app_rowseg"])
 
     # -- 9. the gather paths at 1M ------------------------------------------
+    phase("9. the gather paths at 1M")
     with torch.inference_mode():
         flat_img = pipeline.render(model_1m, cam0, cfg_1m).image
     for name, change in (("presort", dict(presort_depth=True)),
@@ -2658,6 +3019,7 @@ def main() -> int:
             launches=launches[f"1m_{name}"])
 
     # -- 10. the render engine ------------------------------------------
+    phase("10. the render engine")
     app_angles = tuple(360.0 * i / 8 for i in range(8))
     cfg_eng_app = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
                                pair_capacity=stats["pair_capacity"],
@@ -2717,6 +3079,7 @@ def main() -> int:
     del tgt_1m, tgt_t
 
     # -- 11. --device points on the card --------------------------------
+    phase("11. --device points on the card")
     pts_png = os.path.join(tmp, "points.png")
     pts_frames = 3
     pts_stats, launches["points"] = counted(cuda_lib, lambda: app_main.run([
@@ -2770,6 +3133,7 @@ def main() -> int:
     del eng_pts
 
     # -- 12. the remote UI ------------------------------------------------
+    phase("12. the remote UI")
     ui_facts, launches["ui"] = counted(cuda_lib, lambda: ui_session(
         ply_path, probe_cache, os.path.join(tmp, "ui.png")))
     # The probe is read back from phase 3's cache, so B runs no eager
@@ -2779,10 +3143,12 @@ def main() -> int:
     say("ui", **ui_facts, launches=launches["ui"])
 
     # -- 13. posed-image datasets ---------------------------------------
+    phase("13. posed-image datasets")
     ds = dataset_phase(tmp, app_scene, dev, launches)
     say("dataset", **ds)
 
     # -- 14. training extras ----------------------------------------------
+    phase("14. training extras")
     say("extras_colmap", **extras_colmap(tmp, ds, dev, launches))
     facts, launches["extras 1M"] = counted(cuda_lib, lambda: extras_1m(
         model_1m, cfg_train_1m, tc_1m, cam_1m, timer))
@@ -2793,6 +3159,7 @@ def main() -> int:
     say("extras_pose", **extras_pose(tmp, app_scene, ds, dev, launches))
 
     # -- 15. the distributed path ---------------------------------------
+    phase("15. the distributed path")
     def dist_kernels_and_programs():
         with torch.inference_mode():
             splats = project_gaussians(model_1m, cam0, cfg_1m)
@@ -2906,7 +3273,27 @@ def main() -> int:
     facts, launches["dist processes"] = counted(
         cuda_lib, lambda: mh_phase(tmp, ply_path, dev))
     say("dist_processes", card=card, **facts)
+    for name, facts in mh_train_phase(tmp, ply_path, launches,
+                                      cuda_lib).items():
+        say("dist_train_processes", card=card, run=name,
+            processes=MH_PROCESSES, **facts)
     say("timer", **timer.summary())
+
+    # -- 16. kernels C and D against the dense oracle -------------------
+    phase("16. oracle")
+    say("oracle", card=card, **oracle_phase(dev, cuda_lib))
+
+    # -- 17. a profiler trace of replayed app frames ----------------------
+    phase("17. trace")
+    cfg_trace = dataclasses.replace(cfg_eng_app, exact_tile_test=True)
+    facts, launches["trace"] = counted(cuda_lib, lambda: trace_phase(
+        tmp, app_scene, cfg_trace, app_cam, cuda_lib))
+    need_exact("trace", launches["trace"],
+               ("coverage_masks", "stream_expand", "rasterize_relaxed"),
+               captured)
+    say("trace", card=card, **facts, launches=launches["trace"])
+    phases.close()
+    say("tracepoints", **profiling.tracepoint_summary())
 
     for name, r in results.items():
         r["launches"] = sum(path.get(name, 0) for path in launches.values())

@@ -63,6 +63,30 @@ Training extras, with the reference's defaults and composition rules:
                      mean; V must divide N. The drop counters of every step
                      are summed and logged (warned about as they occur).
 
+Multi-process runs (parallel/multihost.py), one process per shard, with
+the reference's environment contract: GSPLAT_COORDINATOR (host:port of
+process 0), GSPLAT_NUM_PROCESSES and GSPLAT_PROCESS_ID, the same
+arguments on every process. NCCL when each process has a card of its own,
+gloo otherwise (processes sharing one card, or the CPU):
+  --distributed      the mesh is one shard per process (--distributed N
+                     must name the process count). --input loads only this
+                     process's rows (--sh-degree is then ignored); --mode
+                     distill and --dataset build the whole initial model
+                     from the seed on every process and keep this
+                     process's rows. Every program runs eagerly (a
+                     collective across processes is not captured). The
+                     density event all-gathers the slot buffer, runs on it
+                     on every process with the same key and keeps this
+                     process's rows. --checkpoint gathers the state on
+                     every process; --export-ply without --densify writes
+                     each process's rows in place; the primary (process 0)
+                     writes every other file.
+  no --distributed   the replicated run: every process trains the whole
+                     model on the single-device path; only the primary
+                     writes files.
+  --view-batch, --pose-opt, --exposure-opt and --depth-loss are ignored
+  with a warning, and --resume exits.
+
 Each step is one replay of a train program captured as a CUDA graph
 (runtime/engine.RenderEngine; trainer, densify or aux_opt register_step)
 with the view's camera, target and view index copied in; on --device cpu
@@ -95,8 +119,9 @@ from gaussian_splat_ipu_tpu_torch.io import colmap as colmap_lib
 from gaussian_splat_ipu_tpu_torch.io import splat as splat_io
 from gaussian_splat_ipu_tpu_torch.io.scene import load_scene
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
-from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
-from gaussian_splat_ipu_tpu_torch.parallel import distributed
+from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
+                                                          GaussianModel)
+from gaussian_splat_ipu_tpu_torch.parallel import distributed, multihost
 from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
@@ -121,8 +146,7 @@ _VB_KEEP = 4             # view-batch steps whose counters stay unread
 
 def parse_args(argv=None):
     """The reference CLI's flags, same defaults, plus --device and --seed;
-    --distributed also takes a shard count. A multi-process run (the
-    reference's GSPLAT_COORDINATOR environment) is refused."""
+    --distributed also takes a shard count."""
     p = argparse.ArgumentParser(
         description="CUDA gaussian splat trainer (PyTorch port)")
     p.add_argument("--input", default="", help="PLY/XYZ/.splat scene")
@@ -233,10 +257,6 @@ def parse_args(argv=None):
                         "(the programs are registered again) instead of "
                         "dropping the lowest-priority births")
     args = p.parse_args(argv)
-    if os.environ.get("GSPLAT_COORDINATOR"):
-        p.error("not ported to the torch package yet: a multi-process run "
-                "(GSPLAT_COORDINATOR is set; ROADMAP.md queue 1, Distributed "
-                "path: multi-process training)")
     if not args.input and not args.dataset:
         p.error("one of --input / --dataset is required")
     return args
@@ -258,15 +278,36 @@ def run(argv=None) -> dict:
     the allocator's reserved bytes after it); with --densify each event
     (step, alive count, pair demand, overflow and exchange overflow of the
     probe, event ms) and the final alive count; the shard count, the view
-    batch and its summed drop counters;
+    batch and its summed drop counters, the process count;
     the learned pose deltas and exposure maps; the overflow and truncation
     of the target renders (--input) or of the initial model's render of
     each training view (--dataset) and of the final render, the holdout
     PSNR and overflow, the final loss, PSNR and step."""
     args = parse_args(argv)
     engine_lib.setup_logging(args.log_level)
-    engine = engine_lib.RenderEngine(RuntimeConfig(device=args.device))
+    # Multi-process bootstrap (GSPLAT_COORDINATOR; a no-op without it).
+    multiproc = (multihost.initialize(device=args.device)
+                 and multihost.process_count() > 1)
+    if multiproc and args.resume:
+        raise SystemExit("--resume is single-process only (restore then "
+                         "re-shard the file across hosts manually via "
+                         "load_scene_sharded)")
+    engine = engine_lib.RenderEngine(RuntimeConfig(
+        device=str(multihost.process_device(args.device)) if multiproc
+        else args.device))
     device = engine.device
+    # A multi-process --distributed run shards over the processes: one
+    # shard each, this process's on its own device.
+    pmesh = None
+    if multiproc and args.distributed:
+        nproc = multihost.process_count()
+        if args.distributed > 0 and args.distributed != nproc:
+            raise SystemExit(f"--distributed {args.distributed} in a run of "
+                             f"{nproc} processes: a multi-process run has "
+                             "one shard per process")
+        pmesh = multihost.make_process_mesh(str(device))
+        log.info("multi-process run: %d processes, shard %d on %s", nproc,
+                 multihost.process_index(), device)
     on_cuda = device.type == "cuda"
     if on_cuda:
         # Full f32 matmuls and convolutions (SSIM), as the reference.
@@ -330,7 +371,12 @@ def run(argv=None) -> dict:
         if args.depth_loss > 0:
             log.warning("--depth-loss needs a COLMAP --dataset; ignoring")
             args.depth_loss = 0.0
-        scene = load_scene(args.input, device=device)
+        if pmesh is not None:
+            # Each process parses only its rows of the scene file.
+            scene = multihost.load_scene_sharded(args.input, pmesh)
+        else:
+            scene = load_scene(args.input, device=device)
+        scene_rows = scene.num_rows or scene.num_gaussians
         extent = float(np.linalg.norm(scene.bb_max - scene.bb_min) * 0.5)
         fov = float(np.radians(40.0))
         cameras = [Camera.orbit(scene.bb_min, scene.bb_max, fov,
@@ -339,9 +385,12 @@ def run(argv=None) -> dict:
                                 device=device)
                    for i in range(args.views)]
         if args.mode == "distill":
+            # The whole scene's count on every process (the reference
+            # draws the padded count of its sharded array: one culled row
+            # more at an odd count over 2 processes).
             gen = torch.Generator(device=device).manual_seed(args.seed)
             model = GaussianModel.random(
-                args.init_gaussians or scene.num_gaussians, generator=gen,
+                args.init_gaussians or scene_rows, generator=gen,
                 device=device, extent=extent)
             init = f"{model.num_gaussians} random gaussians"
         else:
@@ -353,24 +402,35 @@ def run(argv=None) -> dict:
                        rowseg_buckets=args.rowseg, background=(bg, bg, bg))
     check_supported(cfg)
     # The mesh: --distributed alone takes one shard per visible device
-    # (the reference's jax.devices()); one shard is the single-device path.
-    shards = (args.distributed if args.distributed > 0
+    # (the reference's jax.devices()), or one per process; one shard is
+    # the single-device path.
+    shards = (multihost.process_count() if pmesh is not None
+              else args.distributed if args.distributed > 0
               else mesh_lib.visible_device_count(device.type)
               if args.distributed < 0 else 1)
     use_dist = shards > 1
-    if args.view_batch > 1 and (not use_dist or args.densify):
-        log.warning("--view-batch needs --distributed without --densify; "
-                    "ignoring")
+    # On a process mesh this process holds a slice of each slot-indexed
+    # tensor: the model as loaded by --mode self, the state from here on.
+    model_local = pmesh is not None and not args.dataset \
+        and args.mode == "self"
+    if args.view_batch > 1 and (not use_dist or args.densify or multiproc):
+        log.warning("--view-batch needs --distributed without --densify "
+                    "in a single process; ignoring")
         args.view_batch = 0
     if args.view_batch > 1 and shards % args.view_batch:
         raise SystemExit("--view-batch must divide the shard count "
                          f"({shards})")
-    if args.depth_loss > 0 and use_dist:
+    if args.depth_loss > 0 and (use_dist or multiproc):
         log.warning("--depth-loss needs the single-device path; ignoring")
         args.depth_loss = 0.0
     mesh, eager = None, ""
     probe_capacity = cfg.pair_capacity
-    if use_dist:
+    if pmesh is not None:
+        probe_capacity = distributed.default_pair_budget(cfg, shards) * shards
+        mesh = pmesh
+        eager = ("its shards are processes: a collective across processes "
+                 "is not captured in a CUDA graph")
+    elif use_dist:
         probe_capacity = distributed.default_pair_budget(cfg, shards) * shards
         mesh = (mesh_lib.make_mesh_2d(args.view_batch,
                                       shards // args.view_batch,
@@ -386,10 +446,12 @@ def run(argv=None) -> dict:
                  if args.view_batch > 1 else "")
     if not args.dataset:
         log.info("rendering %d target views at %dx%d from %d gaussians",
-                 args.views, args.width, args.height, scene.num_gaussians)
+                 args.views, args.width, args.height, scene_rows)
         with torch.no_grad():
-            target_renders = [render(scene.model, cam, cfg)
-                              for cam in cameras]
+            target_renders = [
+                distributed.render_sharded(scene.model, cam, cfg, pmesh)
+                if pmesh is not None else render(scene.model, cam, cfg)
+                for cam in cameras]
         host_targets = None
 
     # The targets: every view on the device, or with --max-device-views a
@@ -428,9 +490,12 @@ def run(argv=None) -> dict:
     depth_weight = args.depth_loss if depth_pack is not None else 0.0
 
     if args.sh_degree >= 0 and args.sh_degree != model.sh_degree:
-        model = model.with_sh_degree(args.sh_degree)
-        log.info("SH degree -> %d (%d bands)", args.sh_degree,
-                 model.sh.shape[1])
+        if pmesh is not None and args.input:
+            log.warning("--sh-degree ignored: scene was loaded sharded")
+        else:
+            model = model.with_sh_degree(args.sh_degree)
+            log.info("SH degree -> %d (%d bands)", args.sh_degree,
+                     model.sh.shape[1])
     # Progressive SH: band 0 first, one more every --sh-step-every steps.
     full_sh_degree = model.sh_degree
     active_sh = 0 if args.sh_step_every > 0 else -1
@@ -440,7 +505,8 @@ def run(argv=None) -> dict:
     # --pose-opt / --exposure-opt compose with --depth-loss in one aux
     # step; density control and the sharded steps take neither.
     for flag in ("pose_opt", "exposure_opt"):
-        if getattr(args, flag) > 0 and (args.densify or use_dist):
+        if getattr(args, flag) > 0 and (args.densify or use_dist
+                                        or multiproc):
             log.warning("--%s needs the single-device non-densify path; "
                         "ignoring", flag.replace("_", "-"))
             setattr(args, flag, 0.0)
@@ -457,6 +523,11 @@ def run(argv=None) -> dict:
 
     dstate = dcfg = None
     if args.densify:
+        if model_local:
+            # The event works on the whole buffer: gather the loaded slices.
+            with torch.no_grad():
+                model = GaussianModel(*(multihost.gather_rows(
+                    getattr(model, k).detach()) for k in FIELDS))
         n0 = model.num_gaussians
         capacity = args.capacity or 2 * n0
         if args.distributed:
@@ -481,8 +552,14 @@ def run(argv=None) -> dict:
         dstate = densify.init_state(n0, capacity, device=device)
         state = trainer.init_state(
             densify.pad_model(model, capacity).trainable(), tc)
+        if pmesh is not None:
+            state, dstate = multihost.keep_state(state, dstate)
         log.info("density control on: %d init gaussians, capacity %d", n0,
                  capacity)
+    elif pmesh is not None:
+        state = trainer.init_state((model if model_local else
+                                    multihost.local_model(model)).trainable(),
+                                   tc)
     elif use_dist:
         state = trainer.init_state(
             mesh_lib.shard_model(model, mesh).trainable(), tc)
@@ -530,7 +607,11 @@ def run(argv=None) -> dict:
     def register_render():
         example = (state.params, cam0.view.clone(), cam0.proj.clone(),
                    cam0.env_rot.clone())
-        registered(engine.register(_RENDER, splat_program(cfg), example), -1)
+        # On a process mesh each process holds a slice: every render is
+        # sharded, at the shards' own budgets.
+        registered(engine.register(
+            _RENDER, sharded_program(cfg, mesh) if pmesh is not None
+            else splat_program(cfg), example, eager=eager), -1)
         if use_dist and args.densify:
             # The pair-demand probe renders sharded, at the shards' own
             # budgets (distributed.default_pair_budget), as the
@@ -708,6 +789,17 @@ def run(argv=None) -> dict:
             for j, k in enumerate(sel):
                 run_step(int(k), chunk[j] if chunk_views else targets[k])
 
+    def alive_count() -> int:
+        """Alive slots of the whole buffer (summed over the processes)."""
+        alive = torch.sum(dstate.alive)
+        return int(pmesh.group().psum([alive]) if pmesh is not None
+                   else alive)
+
+    def slot_count() -> int:
+        """The whole slot buffer's size (every process's slice)."""
+        return state.params.num_gaussians * (shards if pmesh is not None
+                                              else 1)
+
     densify_open = True
     events = []
     tail_order = None
@@ -748,7 +840,9 @@ def run(argv=None) -> dict:
                     ev = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                     ev[0].record()
-                state, dstate = densify.densify_and_prune(state, dstate, c)
+                state, dstate = (multihost if pmesh is not None
+                                 else densify).densify_and_prune(state,
+                                                                 dstate, c)
                 if on_cuda:
                     ev[1].record()
                     ev[1].synchronize()
@@ -772,8 +866,8 @@ def run(argv=None) -> dict:
                     densify_open = False
                     log.info("pair demand %d near capacity %d: no further "
                              "densification", demand, probe_capacity)
-                alive_now = int(torch.sum(dstate.alive))
-                slots = state.params.num_gaussians
+                alive_now = alive_count()
+                slots = slot_count()
                 events.append(dict(step=i, alive=alive_now, demand=demand,
                                    overflow=ovf, exchange_overflow=xovf,
                                    event_ms=event_ms, slots=slots))
@@ -846,35 +940,50 @@ def run(argv=None) -> dict:
         log.info("holdout eval: %.2f dB mean PSNR over %d unseen views",
                  eval_psnr, len(outs))
     final_alive = None
-    scene_out = state.params
     if args.densify:
-        final_alive = int(torch.sum(dstate.alive))
+        final_alive = alive_count()
         log.info("final gaussian count: %d (capacity %d)", final_alive,
-                 state.params.num_gaussians)
-        if args.export_ply or args.export_splat:
-            scene_out = densify.compact(state.params, dstate)
-    if args.checkpoint:
-        payload = ((state, dstate) if args.densify
-                   else (state, aux) if aux is not None else state)
+                 slot_count())
+    # The files: on a process mesh the state is gathered on every process
+    # (a collective all of them call) and the primary writes, except a
+    # PLY without --densify, which each process writes its rows of.
+    sharded_ply = pmesh is not None and not args.densify
+    whole, whole_d = state, dstate
+    if pmesh is not None and (args.checkpoint or args.export_splat
+                              or (args.export_ply and not sharded_ply)):
+        whole, whole_d = multihost.gather_state(state, dstate)
+    scene_out = whole.params
+    if args.densify and (args.export_ply or args.export_splat):
+        scene_out = densify.compact(whole.params, whole_d)
+    primary = multihost.is_primary()
+    if args.checkpoint and primary:
+        payload = ((whole, whole_d) if args.densify
+                   else (whole, aux) if aux is not None else whole)
         checkpoint.save_checkpoint(args.checkpoint, payload)
         log.info("checkpoint -> %s", args.checkpoint)
-    if args.export_ply:
+    if args.export_ply and sharded_ply:
+        multihost.export_ply_sharded(args.export_ply, state.params)
+        log.info("scene -> %s (each process its rows)", args.export_ply)
+    elif args.export_ply and primary:
         checkpoint.export_ply(args.export_ply, scene_out)
         log.info("scene -> %s", args.export_ply)
-    if args.export_splat:
+    if args.export_splat and primary:
         splat_io.write_splat(args.export_splat, scene_out)
         log.info("scene -> %s (.splat)", args.export_splat)
     final_loss = losses_h[-1] if losses_h else float("nan")
     tail = f" eval_psnr={eval_psnr:.2f}" if eval_psnr is not None else ""
     print(f"final_loss={final_loss:.6f} psnr={psnr:.2f}{tail}")
+    processes = multihost.process_count()
+    if multiproc:
+        torch.distributed.destroy_process_group()
     return dict(losses=losses_h, step_ms=step_ms, pipelined_ms=pipelined,
-                shards=shards if use_dist else 1,
+                shards=shards if use_dist else 1, processes=processes,
                 view_batch=args.view_batch, vb_drops=vb_drops,
                 capture_seconds=step_prog.compile_seconds,
                 registrations=registrations, events=events,
                 final_loss=final_loss, psnr=psnr, eval_psnr=eval_psnr,
                 step=int(state.step), init=init,
-                num_gaussians=state.params.num_gaussians,
+                num_gaussians=slot_count(),
                 final_alive=final_alive, active_sh_degree=active_sh,
                 views=args.views, holdout_views=len(holdout_cams),
                 device_views=chunk_views or args.views,

@@ -5,6 +5,7 @@ this module builds the port's model on an explicit device."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -17,6 +18,9 @@ class Scene:
     model: GaussianModel
     bb_min: np.ndarray
     bb_max: np.ndarray
+    # The whole scene's row count when `model` holds one process's slice
+    # (parallel/multihost.load_scene_sharded); None: the model's own.
+    num_rows: Optional[int] = None
 
     @property
     def num_gaussians(self) -> int:

@@ -74,7 +74,9 @@ class ShardedRenderOutput(NamedTuple):
     tile_counts: torch.Tensor  # (rows * D * tiles_x,) i32, phantom rows too
     overflow: torch.Tensor     # () i32 pairs dropped, summed over shards
     num_pairs: torch.Tensor    # () i32 pairs kept, summed over shards
-    visible: torch.Tensor      # (N,) bool frustum mask, shard order
+    visible: torch.Tensor      # (N,) bool frustum mask of the model's
+    #                            rows, shard order (this process's slice
+    #                            on a process mesh)
     truncated: torch.Tensor    # () i32 pairs past the per-range work bound
     exchange_overflow: torch.Tensor  # () i32 splat rows dropped at the
     #                                  all_to_all buckets (0 for all_gather)
@@ -299,9 +301,11 @@ def _render_group(group: ShardGroup, model: GaussianModel, camera: Camera,
         npairs.append(binned.num_pairs)
         trunc.append(pipeline.truncated_pairs(cnt, cfg, row_lo))
     out = model.device
+    # The frustum mask of the rows this process holds (all of them on a
+    # one-process mesh): the rows its densify statistics accumulate over.
+    visible = torch.cat([(sp.radius[:, 0] > 0.0).to(out) for sp in splats])
     return (group.gather(tiles, out), group.gather(counts, out),
-            group.psum(ovf).to(out), group.psum(npairs).to(out),
-            group.gather([sp.radius[:, 0] > 0.0 for sp in splats], out),
+            group.psum(ovf).to(out), group.psum(npairs).to(out), visible,
             group.psum(trunc).to(out), group.psum(xovf).to(out))
 
 
@@ -479,26 +483,31 @@ def grow_capacity_sharded(mesh: Mesh, state: trainer.TrainState,
     on the last shard). New slots are culled and unallocated (opacity and
     log-scales -30, identity quaternions, alive False); the density event
     allocates by the alive mask, so interleaved dead runs serve as a
-    contiguous tail would. The result holds new tensors: register the
-    programs again."""
-    d = mesh.shape[axis]
-    old = dstate.alive.shape[0]
+    contiguous tail would. new_capacity counts the whole buffer; on a
+    process mesh (parallel/multihost.py) this process grows its own
+    shard's slice, the one it holds. The result holds new tensors:
+    register the programs again."""
+    group = mesh.group(0, axis)
+    d, held = group.size, len(group.local)
+    rows = dstate.alive.shape[0]          # the rows this process holds
+    old = rows // held * d
     if new_capacity == old:
         return state, dstate
-    if new_capacity < old or new_capacity % d or old % d:
+    if new_capacity < old or new_capacity % d or rows % held:
         raise ValueError(f"capacity {old} -> {new_capacity} must grow in "
                          f"multiples of the mesh size {d}")
     pad_per = (new_capacity - old) // d
+    new_rows = rows + held * pad_per
 
     def grow(x, fill=0.0):
-        shards = x.detach().reshape(d, old // d, *x.shape[1:])
+        shards = x.detach().reshape(held, rows // held, *x.shape[1:])
         if fill is None:       # identity quaternions
-            pad = shards.new_zeros((d, pad_per, 4))
+            pad = shards.new_zeros((held, pad_per, 4))
             pad[..., 0] = 1.0
         else:
-            pad = shards.new_full((d, pad_per) + tuple(x.shape[1:]), fill)
-        return torch.cat([shards, pad], 1).reshape(new_capacity,
-                                                   *x.shape[1:])
+            pad = shards.new_full((held, pad_per) + tuple(x.shape[1:]),
+                                  fill)
+        return torch.cat([shards, pad], 1).reshape(new_rows, *x.shape[1:])
 
     p = state.params
     params = GaussianModel(grow(p.means), grow(p.log_scales, -30.0),

@@ -27,6 +27,13 @@ instead of summing every process's copy (`_GatherReplicated`), so a
 gradient is not counted once per process. Collectives cannot be captured
 by a CUDA graph on one device: programs over a process mesh run eagerly
 (RenderEngine.register(eager=)).
+
+Training state on a process mesh (app/train.py): each process holds its
+rows of every slot-indexed tensor (parameters, Adam moments, density
+statistics; `local_model`, `keep_state`). `gather_state` all-gathers them
+for a checkpoint, and `densify_and_prune` runs the density event on the
+gathered buffer on every process, with the same key, keeping each
+process's rows: the event's ranking and allocation are global.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch.distributed.nn  # noqa: F401  (dist.nn.functional)
 from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
                                                           GaussianModel)
 from gaussian_splat_ipu_tpu_torch.parallel.mesh import SHARD_AXIS
+from gaussian_splat_ipu_tpu_torch.train import densify, trainer
 
 log = logging.getLogger("gsplat")
 
@@ -222,15 +230,106 @@ class ProcessShardGroup:
     def gather(self, xs: Sequence[torch.Tensor],
                device: torch.device) -> torch.Tensor:
         (x,) = xs
-        if x.dtype == torch.bool:
-            x = x.to(torch.uint8)
-            return _gather(x).to(device).to(torch.bool)
-        return _gather(x).to(device)
+        return gather_rows(x).to(device)
 
 
-def _gather(x: torch.Tensor) -> torch.Tensor:
-    dev = x.device
-    return _GatherReplicated.apply(_to_wire(x)).to(dev)
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every process's x concatenated in process order, on x's device, on
+    every process: a collective that all processes call. Differentiable
+    (_GatherReplicated); with gloo a CUDA tensor is staged through pinned
+    host memory."""
+    if x.dtype == torch.bool:
+        return gather_rows(x.to(torch.uint8)).to(torch.bool)
+    return _GatherReplicated.apply(_to_wire(x)).to(x.device)
+
+
+def keep_rows(x: torch.Tensor) -> torch.Tensor:
+    """A copy of this process's rows of a whole tensor whose leading
+    dimension splits evenly over the processes (shard order)."""
+    n, p = x.shape[0], process_count()
+    if n % p:
+        raise ValueError(f"{n} rows do not split over {p} processes")
+    lo = process_index() * (n // p)
+    return x[lo:lo + n // p].clone()
+
+
+def local_model(model: GaussianModel) -> GaussianModel:
+    """This process's shard of a whole model, laid out as
+    parallel.mesh.shard_model lays a model over a mesh of one shard per
+    process: padded to a multiple of the process count (culled padding),
+    this process's contiguous run of rows. Parameters require grad as the
+    input's do."""
+    p = process_count()
+    padded = model.pad_to(-(-model.num_gaussians // p) * p)
+    return GaussianModel(*(keep_rows(getattr(padded, k).detach())
+                           for k in FIELDS),
+                         requires_grad=model.means.requires_grad)
+
+
+def _slots(state: trainer.TrainState, dstate=None) -> list:
+    """Every slot-indexed tensor of (state, dstate), in a fixed order: the
+    five parameters, each label's Adam moments, then grad_sum, vis_count
+    and alive."""
+    ts = [getattr(state.params, k) for k in FIELDS]
+    for label in trainer.LABELS:
+        st = state.opt_state.adam[label]
+        ts += [st.mu, st.nu]
+    if dstate is not None:
+        ts += [dstate.grad_sum, dstate.vis_count, dstate.alive]
+    return ts
+
+
+def _with_slots(state: trainer.TrainState, dstate, ts: list):
+    """(state, dstate) with its slot-indexed tensors replaced by ts (in
+    _slots order); the counts, the step and the key are kept."""
+    it = iter(ts)
+    params = GaussianModel(*(next(it).detach() for _ in FIELDS),
+                           requires_grad=True)
+    adam = {label: trainer.AdamState(state.opt_state.adam[label].count,
+                                     next(it), next(it))
+            for label in trainer.LABELS}
+    new = trainer.TrainState(
+        params, trainer.OptState(adam, state.opt_state.means_lr_count),
+        state.step)
+    if dstate is None:
+        return new, None
+    return new, densify.DensifyState(next(it), next(it), next(it),
+                                     dstate.key)
+
+
+@torch.no_grad()
+def gather_state(state: trainer.TrainState, dstate=None):
+    """The whole (state, dstate) on every process, each slot-indexed
+    tensor all-gathered from the processes' slices: a collective that all
+    processes call. The counts, the step and the key are the same on
+    every process already."""
+    return _with_slots(state, dstate,
+                       [gather_rows(t) for t in _slots(state, dstate)])
+
+
+def keep_state(state: trainer.TrainState, dstate=None):
+    """This process's rows of a whole (state, dstate) (keep_rows of every
+    slot-indexed tensor)."""
+    return _with_slots(state, dstate,
+                       [keep_rows(t.detach()) for t in _slots(state, dstate)])
+
+
+def densify_and_prune(state: trainer.TrainState,
+                      dstate: densify.DensifyState,
+                      cfg: densify.DensifyConfig = densify.DensifyConfig()):
+    """One density event on a process mesh, where each process holds a
+    slice of the slot buffer: every slot-indexed tensor is all-gathered,
+    densify.densify_and_prune runs on the whole buffer on every process
+    with the same key (so the same split noise), and this process's rows
+    are written back into its tensors in place (a registered program
+    keeps training them). Returns (state, dstate with the advanced key).
+    The opacity reset is elementwise and needs no gather."""
+    whole, wd = gather_state(state, dstate)
+    whole, wd = densify.densify_and_prune(whole, wd, cfg)
+    with torch.no_grad():
+        for mine, w in zip(_slots(state, dstate), _slots(whole, wd)):
+            mine.copy_(keep_rows(w))
+    return state, dstate._replace(key=wd.key)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,7 +382,8 @@ def load_scene_sharded(path: str, mesh, center: bool = True,
     boxes of all processes are exchanged before assembly; the scene's
     bounds are the union of the processes' assembled boxes. The returned
     Scene holds this process's slice, padded (GaussianModel.pad_to) to the
-    common length. One process: load_scene and shard_model."""
+    common length, and the file's row count in num_rows. One process:
+    load_scene and shard_model."""
     from gaussian_splat_ipu_tpu_torch.io import ply as ply_io
     from gaussian_splat_ipu_tpu_torch.io import scene as scene_lib
     from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
@@ -292,8 +392,12 @@ def load_scene_sharded(path: str, mesh, center: bool = True,
     if ext not in ("ply", "splat") or process_count() == 1:
         scene = scene_lib.load_scene(path, center, flip_z, sh_degree,
                                      device=mesh.device)
+        scene.num_rows = scene.num_gaussians
         if isinstance(mesh, mesh_lib.Mesh):
             scene.model = mesh_lib.shard_model(scene.model, mesh)
+        else:
+            # Other formats have no row index: parse the whole file.
+            scene.model = local_model(scene.model)
         return scene
     if ext == "splat":
         from gaussian_splat_ipu_tpu_torch.io import splat as splat_io
@@ -319,6 +423,7 @@ def load_scene_sharded(path: str, mesh, center: bool = True,
     boxes = _all_boxes(post, mesh.device)
     scene.bb_min, scene.bb_max = boxes[:, 0].min(0), boxes[:, 1].max(0)
     scene.model = scene.model.pad_to(per_proc)
+    scene.num_rows = n
     return scene
 
 

@@ -66,21 +66,35 @@ def _send_packet(sock: socket.socket, ptype: str, payload: bytes) -> None:
                  + payload)
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    buf = b""
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
-            raise ConnectionError("peer closed")
-        buf += chunk
-    return buf
+class _PacketReader:
+    """Length-prefixed packets from a socket whose reads time out. The
+    bytes that arrived before a timeout stay buffered and the next call
+    resumes the same packet, so a timeout in the middle of a packet never
+    loses the stream's framing (reading on from inside a payload would
+    take its bytes for a header and wait for a length of garbage)."""
 
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self._buf = bytearray()
 
-def _recv_packet(sock: socket.socket):
-    plen, nlen = struct.unpack(">II", _recv_exact(sock, 8))
-    ptype = _recv_exact(sock, nlen).decode()
-    payload = _recv_exact(sock, plen)
-    return ptype, payload
+    def _fill(self, n: int) -> None:
+        while len(self._buf) < n:
+            chunk = self.sock.recv(max(n - len(self._buf), 1 << 16))
+            if not chunk:
+                raise ConnectionError("peer closed")
+            self._buf += chunk
+
+    def packet(self):
+        """(type, payload) of the next packet; socket.timeout leaves what
+        has arrived for the next call."""
+        self._fill(8)
+        plen, nlen = struct.unpack(">II", self._buf[:8])
+        end = 8 + nlen + plen
+        self._fill(end)
+        ptype = self._buf[8:8 + nlen].decode()
+        payload = bytes(self._buf[8 + nlen:end])
+        del self._buf[:end]
+        return ptype, payload
 
 
 class InterfaceServer:
@@ -93,6 +107,9 @@ class InterfaceServer:
         self.port = port
         self._state = UiState()
         self._lock = threading.Lock()
+        # One packet on the wire at a time: the receive thread's `ready`
+        # and the render loop's frames must not interleave.
+        self._send_lock = threading.Lock()
         self._client: Optional[socket.socket] = None
         self._server: Optional[socket.socket] = None
         self._thread: Optional[threading.Thread] = None
@@ -219,10 +236,20 @@ class InterfaceServer:
         if client is None:
             return
         try:
-            _send_packet(client, ptype, payload)
+            with self._send_lock:
+                _send_packet(client, ptype, payload)
         except OSError:
+            # Part of the packet may be on the wire: the stream cannot go
+            # on, so the connection closes (the receive loop then waits
+            # for the next viewer).
             log.info("UI client disconnected (send)")
-            self._client = None
+            if self._client is client:
+                self._client = None
+            try:
+                client.shutdown(socket.SHUT_RDWR)
+                client.close()
+            except OSError:
+                pass
 
     # -- receive loop --------------------------------------------------
     def _communicate(self) -> None:
@@ -235,11 +262,12 @@ class InterfaceServer:
                 return
             log.info("UI client connected from %s", addr)
             client.settimeout(0.5)
+            reader = _PacketReader(client)
             self._client = client
             self.send_ready()
             while not self._stop.is_set():
                 try:
-                    ptype, payload = _recv_packet(client)
+                    ptype, payload = reader.packet()
                 except socket.timeout:
                     continue
                 except (ConnectionError, OSError):
@@ -294,6 +322,7 @@ class InterfaceClient:
 
     def __init__(self, host: str, port: int, timeout: float = 5.0):
         self.sock = socket.create_connection((host, port), timeout=timeout)
+        self._reader = _PacketReader(self.sock)
         self._decoder = None
         self._hdr = None  # (meta, [chunks]) in-flight raw transfer
 
@@ -301,7 +330,9 @@ class InterfaceClient:
         _send_packet(self.sock, ptype, json.dumps({"value": value}).encode())
 
     def recv(self):
-        return _recv_packet(self.sock)
+        """(type, payload) of the next packet; on socket.timeout the bytes
+        received so far are kept for the next call."""
+        return self._reader.packet()
 
     def decode_preview(self, payload: bytes):
         """render_preview payload -> (H, W, C) u8 frame, or None for a

@@ -3,9 +3,10 @@ subprocess blocks every `jax` import and every import of
 `gaussian_splat_ipu_tpu` (not of the port), imports the whole port,
 renders a tiny frame, bins it into row buckets, takes one train step on
 the CPU and one through the engine's step program, writes and reads a
-.splat and a COLMAP capture, seeds a model from points, and runs the
-training extras: a densify step and event, an aux step (pose + exposure)
-and the sparse depth loss."""
+.splat and a COLMAP capture, seeds a model from points, runs the
+training extras (a densify step and event, an aux step (pose + exposure)
+and the sparse depth loss) and the distributed path, and renders the
+dense oracle inside a profiling trace and Tracepoint."""
 
 import os
 import subprocess
@@ -137,6 +138,16 @@ CHILD = textwrap.dedent("""
     got = app_train.run(small + ["--views", "2", "--steps", "2",
                                  "--distributed", "2", "--view-batch", "2"])
     assert got["shards"] == 2 and got["step"] == 1
+
+    from gaussian_splat_ipu_tpu_torch.render.oracle import render_oracle
+    from gaussian_splat_ipu_tpu_torch.utils import profiling
+    with profiling.trace(os.path.join(td, "trace")):
+        with profiling.Tracepoint("oracle"):
+            ref = render_oracle(model, cam, cfg)
+    assert float((ref - out.image).abs().max()) <= 1e-4
+    assert profiling.tracepoint_summary()["oracle"]["count"] == 1
+    assert os.path.isfile(os.path.join(td, "trace", "trace.json"))
+    assert profiling.two_point_time(lambda k: None) > 0.0
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
     assert not any(k == REF or k.startswith(REF + ".") for k in sys.modules)
     print("OK")

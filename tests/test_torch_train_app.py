@@ -280,17 +280,26 @@ def test_transforms_rgba_white_background_random_init(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--distributed"], ["--view-batch", "2"]])
-def test_unported_flags_are_refused(flags, capsys, monkeypatch):
-    """--distributed and --view-batch train in one process (tests/
-    test_torch_distributed_app.py); a multi-process run, which the
-    GSPLAT_COORDINATOR environment asks for, is refused."""
-    assert app.parse_args(["--input", "x.ply", *flags]).input == "x.ply"
+def test_multi_process_flags_are_accepted(flags, monkeypatch):
+    """A multi-process run (the GSPLAT_COORDINATOR environment) takes the
+    distributed flags (tests/test_torch_multihost_train.py trains one)."""
     monkeypatch.setenv("GSPLAT_COORDINATOR", "127.0.0.1:29500")
-    with pytest.raises(SystemExit):
-        app.parse_args(["--input", "x.ply", *flags])
-    err = capsys.readouterr().err
-    assert "not ported to the torch package yet" in err
-    assert "ROADMAP.md" in err and "Distributed path" in err
+    args = app.parse_args(["--input", "x.ply", *flags])
+    assert args.input == "x.ply"
+    assert args.distributed == -1 or args.view_batch == 2
+
+
+def test_multi_process_resume_exits(tmp_path, monkeypatch):
+    """--resume is single-process only, as in the reference
+    (gaussian_splat_ipu_tpu/app/train.py:586-590): a run of two processes
+    exits with its message before it loads anything."""
+    from gaussian_splat_ipu_tpu_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "initialize", lambda **kw: True)
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    with pytest.raises(SystemExit, match="--resume is single-process only"):
+        app.run(["--input", str(tmp_path / "missing.ply"), "--resume",
+                 str(tmp_path / "ck.npz"), "--device", "cpu",
+                 "--log-level", "off"])
 
 
 @pytest.mark.parametrize("flags,dest,value", [

@@ -157,3 +157,60 @@ def test_detach_drops_only_its_requester(session):
         assert recv_type(c, "render_preview")[4] == 0
     finally:
         c.close()
+
+
+def test_a_read_timeout_mid_packet_keeps_the_framing():
+    """A read that times out inside a packet keeps what arrived: the next
+    read returns that packet whole, then the one after it (reading on from
+    inside a payload would take its bytes for a header)."""
+    import struct
+    a, b = socket.socketpair()
+    try:
+        b.settimeout(0.2)
+        reader = server._PacketReader(b)
+        big = bytes(range(256)) * 400
+        pkt = struct.pack(">II", len(big), 14) + b"render_preview" + big
+        a.sendall(pkt[:5000])
+        with pytest.raises(socket.timeout):
+            reader.packet()
+        a.sendall(pkt[5000:] + struct.pack(">II", 2, 5) + b"ready{}")
+        assert reader.packet() == ("render_preview", big)
+        assert reader.packet() == ("ready", b"{}")
+    finally:
+        a.close()
+        b.close()
+
+
+def test_concurrent_sends_do_not_interleave():
+    """Two threads pushing packets through one server connection (the
+    receive thread's `ready` and the render loop's frames): every packet
+    reaches the client whole."""
+    import threading
+    a, b = socket.socketpair()
+    srv = server.InterfaceServer(0)
+    srv._client = a
+    b.settimeout(DEADLINE_S)
+    reader = server._PacketReader(b)
+    payloads = {name: bytes([k]) * (1 << 18)
+                for k, name in enumerate(("one", "two"))}
+    count = 16
+
+    def push(name):
+        for _ in range(count):
+            srv._send(name, payloads[name])
+
+    threads = [threading.Thread(target=push, args=(n,), daemon=True)
+               for n in payloads]
+    try:
+        for t in threads:
+            t.start()
+        got = [reader.packet() for _ in range(2 * count)]
+        for t in threads:
+            t.join(timeout=DEADLINE_S)
+        assert not any(t.is_alive() for t in threads)
+        assert all(payloads[name] == payload for name, payload in got)
+        assert sorted(name for name, _ in got) == ["one"] * count + \
+            ["two"] * count
+    finally:
+        a.close()
+        b.close()

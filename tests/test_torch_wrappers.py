@@ -206,3 +206,50 @@ def test_raster_kernels_match_at_a_tile_offset_on_the_card():
             rasterize.rasterize_tiles(binned, CFG, 3)
         torch.cuda.synchronize()
     assert cuda_lib.launches["rasterize_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_raster_kernels_match_the_oracle_on_the_card():
+    """Kernel C strict and C-aux against the dense oracle
+    (render/oracle.py) at the tiled render's bar (atol 2e-5 / rtol 1e-4),
+    and kernel D's model gradients, through the render under autograd,
+    against autograd through the oracle (atol 2e-4 / rtol 1e-3), on 192
+    gaussians at 64x64 over a black background (the density of
+    tests/test_backward_kernel.py:53-61)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode "
+                    "(chip_smoke.py's oracle phase runs this at 160x128)")
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS
+    from gaussian_splat_ipu_tpu_torch.render import pipeline
+    from gaussian_splat_ipu_tpu_torch.render.oracle import render_oracle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = RasterConfig(image_width=64, image_height=64,
+                       pair_capacity=1 << 12, max_chunks_per_tile=4)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model = GaussianModel.random(192, generator=g, device="cuda")
+    cam = Camera.orbit(-np.ones(3), np.ones(3), float(np.radians(40.0)), 1.0,
+                       device="cuda")
+    weights = torch.randn((64, 64, 4), generator=g, device="cuda")
+    cuda_lib.launches.clear()
+    with torch.inference_mode():
+        ref = render_oracle(model, cam, cfg)
+        strict = pipeline.render(model, cam, cfg).image
+        binned = binning.bin_splats(project_gaussians(model, cam, cfg), cfg)
+        aux = pipeline._untile_crop(rasterize.rasterize_tiles_aux(binned,
+                                                                  cfg)[0],
+                                    cfg)
+    for img in (strict, aux):
+        torch.testing.assert_close(img, ref, atol=2e-5, rtol=1e-4)
+
+    def grads(render_fn):
+        m = model.trainable()
+        loss = torch.sum(render_fn(m, cam, cfg) * weights)
+        return torch.autograd.grad(loss, tuple(m.parameters()))
+
+    got = grads(lambda m, c, f: pipeline.render(m, c, f).image)
+    want = grads(render_oracle)
+    for k, a, b in zip(FIELDS, got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3, msg=k)
+    assert cuda_lib.launches["rasterize_strict"] == 1
+    assert cuda_lib.launches["rasterize_strict_aux"] == 2
+    assert cuda_lib.launches["rasterize_bwd"] == 1
