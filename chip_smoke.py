@@ -162,13 +162,31 @@ Phases, each printing its own lines:
      background; the error at a white background reported only;
  17. utils/profiling.trace() around TRACE_FRAMES replayed app frames
      (exact tiles), each inside a Tracepoint: the Chrome trace names
-     kernels A, B and C and the Tracepoint's range.
+     kernels A, B and C and the Tracepoint's range;
+ 18. the native host library (io/native.py), the scene tool and a
+     clustered scene: (a) the library built by g++ on the card's host from
+     the port's csrc/host/ and loaded; (b) stack_f32_columns on the
+     2^20-row PLY of phase 4's scene (14 columns) and center_flip on its
+     means, equal to numpy, and to_uint8 on a 1280x720 frame of phase 3's
+     scene within 1 count, host ms with and without the library; (c) phase
+     13's capture through load_colmap with the library at downscale 1 and
+     2, every image bit-equal to decode_png_torch, load seconds with and
+     without it, then app/train.py --dataset --downscale 2 on the
+     prefetched targets (exact tiles, a probed capacity): no drop, finite
+     losses, kernels A, B, C-aux and D launched; (d) app/scene_tool.py on
+     phase 13's exported PLY (prune, SH cap, centre-and-flip, --stats, PLY
+     and .splat), both outputs rendered by the app with overflow 0, and
+     the app scene at full width (strict C) against its mirrored copy
+     through the mirrored camera (MIRROR_*); (e)
+     GaussianModel.clustered(2^20) at the 1M config: one frame, overflow
+     0, then C strict on its table against the plain version, timed with
+     its bound beside the uniform 1M row.
 Each phase runs inside a Tracepoint named after it; their host seconds
-(profiling.tracepoint_summary) are printed after phase 17.
-The launch counters are zeroed just before each of phases 3-15 and 17
-and read just after it: every kernel must have carried the path that uses
-it (phase 16 compares kernels with the oracle, and its launches are
-reported apart). The apps (phases 3, 6, 8, 12, 13, 14, 15, 17) run their
+(profiling.tracepoint_summary) are printed after phase 18.
+The launch counters are zeroed just before each of phases 3-15, 17 and
+18's paths and read just after: every kernel must have carried the path
+that uses it (phase 16 compares kernels with the oracle, and its launches
+are reported apart). The apps (phases 3, 6, 8, 12-15, 17, 18) run their
 frames and steps as graph replays, which launch through no wrapper: a
 kernel of a captured program counts engine.WARMUP_CALLS + 1 launches
 (warm-up and capture) however many frames or steps are replayed, and the
@@ -314,6 +332,21 @@ ORACLE_TOL = dict(atol=2e-5, rtol=1e-4)
 ORACLE_GRAD_TOL = dict(atol=2e-4, rtol=1e-3)
 # Trace phase: app frames replayed under profiling.trace().
 TRACE_FRAMES = 3
+# Host-library phase: host timings are medians of NATIVE_REPS calls; the
+# decode's train run takes NATIVE_TRAIN_STEPS steps; the scene tool prunes
+# below TOOL_PRUNE_OPACITY (3DGS's own). The mirrored frame is held to
+# MIRROR_TOL (tests/test_scene_tool.py:130) but for MIRROR_SHARE of its
+# values, each within MIRROR_CUTOFF_X alpha_min: at full width a few
+# splats' alpha rounds across alpha_min, or a pixel's transmittance across
+# strict termination, in one frame and not the other (f32: the mirrored
+# means and camera round apart), and each such crossing moves a pixel by
+# up to about one alpha_min.
+NATIVE_REPS = 5
+NATIVE_TRAIN_STEPS = 6
+TOOL_PRUNE_OPACITY = 0.005
+MIRROR_TOL = 2e-5
+MIRROR_SHARE = 1e-3
+MIRROR_CUTOFF_X = 2.0
 # A run still going after this many seconds prints every thread's stack and
 # exits non-zero (the run's limit is 1200 s).
 DEADLINE_S = 1140
@@ -2299,6 +2332,391 @@ def trace_phase(tmp: str, app_scene, cfg, cam_of, cuda_lib) -> dict:
                     "render"].compile_seconds)
 
 
+def host_ms(fn, reps: int = NATIVE_REPS) -> float:
+    """Median host ms of fn() over `reps` calls: the host library runs on
+    the card machine's CPU, not on the card."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def without_native(native):
+    """The host library's unbuilt state for the calls inside: each of its
+    functions returns None and its callers take their numpy or PIL
+    path."""
+    lib = native._lib
+    native._lib = None
+    try:
+        yield
+    finally:
+        native._lib = lib
+
+
+def native_build(native) -> dict:
+    """18 (a): build the host library with g++ on the card's host and load
+    it."""
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    t0 = time.perf_counter()
+    try:
+        path = native.build()
+    except RuntimeError as e:
+        fail(f"native build: {e}")
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        fail("native build: the library does not load")
+    return dict(gxx=(gxx.stdout.splitlines() or [gxx.stderr])[0].strip(),
+                build_s=build_s, library=os.path.relpath(path),
+                flags=" ".join(native.CXX_FLAGS + native.LIBS))
+
+
+def native_functions(tmp: str, model_1m, frame, native) -> dict:
+    """18 (b): each function of the library against its plain version at
+    the sizes the system gives it: stack_f32_columns on the 2^20-row PLY
+    of phase 4's scene (14 columns) and center_flip on its means, both
+    equal; to_uint8 on a 1280x720 RGB frame of phase 3's scene within 1
+    count. Host ms with and without the library, each the median of
+    NATIVE_REPS calls."""
+    from gaussian_splat_ipu_tpu_torch.io import ply as ply_io
+    from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import (
+        center_and_flip)
+    from gaussian_splat_ipu_tpu_torch.utils import image as image_util
+    path = os.path.join(tmp, "scene_1m.ply")
+    scene_io.write_ply(path, model_1m)
+    rec = ply_io.read_ply(path)["vertex"].data
+    names = list(rec.dtype.names)
+
+    def plain_stack():           # io/ply.py's numpy path
+        return np.stack([np.asarray(rec[n]).astype(np.float32)
+                         for n in names], -1)
+
+    cols = native.stack_f32_columns(rec, names)
+    if len(names) != 14 or cols is None or not np.array_equal(
+            cols, plain_stack()):
+        fail(f"stack_f32_columns: {len(names)} columns, not equal to the "
+             "numpy stack")
+    facts = dict(stack_f32_columns=dict(
+        rows=int(cols.shape[0]), columns=len(names), equal=True,
+        host_ms=host_ms(lambda: native.stack_f32_columns(rec, names)),
+        host_ms_without=host_ms(plain_stack)))
+
+    means = np.ascontiguousarray(cols[:, :3])
+    want = center_and_flip(means)
+    bufs = [means.copy() for _ in range(NATIVE_REPS + 1)]
+    bb = native.center_flip(bufs[0])
+    if bb is None or not (np.array_equal(bufs[0], want) and np.array_equal(
+            bb, np.stack([means.min(0), means.max(0)]))):
+        fail("center_flip: not equal to the numpy centre and flip")
+    left = iter(bufs[1:])
+    facts["center_flip"] = dict(
+        shape=list(means.shape), equal=True,
+        host_ms=host_ms(lambda: native.center_flip(next(left))),
+        host_ms_without=host_ms(lambda: center_and_flip(means)))
+
+    for exposure, gamma in ((1.0, 1.0), (1.0, 2.2)):
+        got = native.to_uint8(frame, exposure, gamma)
+        with without_native(native):
+            want = image_util.to_uint8(frame, exposure, gamma)
+            plain = host_ms(lambda: image_util.to_uint8(frame, exposure,
+                                                        gamma))
+        diff = int(np.abs(got.astype(np.int32) - want).max())
+        if got.shape != want.shape or diff > 1:
+            fail(f"to_uint8 (gamma {gamma}): {diff} counts from the numpy "
+                 "tone map")
+        facts[f"to_uint8_gamma_{gamma}"] = dict(
+            shape=list(frame.shape), max_count_diff=diff,
+            counts_off=int((got != want).sum()),
+            host_ms=host_ms(lambda: native.to_uint8(frame, exposure,
+                                                    gamma)),
+            host_ms_without=plain)
+    return facts
+
+
+def native_decode(ds: dict, dev, native, cuda_lib):
+    """18 (c): phase 13's capture through load_colmap with the library at
+    downscale 1 and 2, every image equal to decode_png_torch (at 1: PIL's
+    bytes times f32(1/255)), against the load without it (PIL); then
+    app/train.py --dataset --downscale 2 for NATIVE_TRAIN_STEPS steps on
+    the prefetched targets (every image fetched through ImagePrefetcher),
+    exact tiles, DS_PAIR_SLACK x the probed demand: no drop on any view and
+    finite losses. Returns (facts, the train run's launches)."""
+    import torch
+    import gaussian_splat_ipu_tpu_torch.app.train as app_train
+    from gaussian_splat_ipu_tpu_torch.io import colmap, dataset
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.render import binning
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+    root = ds["capture_root"]
+    img_dir = os.path.join(root, "images")
+    paths = [os.path.join(img_dir, n) for n in sorted(os.listdir(img_dir))]
+    facts = {}
+    for d in (1, 2):
+        def load(with_lib: bool):
+            t0 = time.perf_counter()
+            with (contextlib.nullcontext() if with_lib
+                  else without_native(native)):
+                fs = colmap.load_colmap(root, downscale=d, device=dev)[0]
+            return fs, time.perf_counter() - t0
+
+        # In turns: without, with, with, without.
+        pil_fs, s0 = load(False)
+        lib_fs, s1 = load(True)
+        _, s2 = load(True)
+        _, s3 = load(False)
+        if len(lib_fs) != DS_VIEWS or len(paths) != DS_VIEWS:
+            fail(f"decode: {len(lib_fs)} views loaded of {len(paths)}")
+        for p, img in zip(paths, lib_fs.images):
+            want = dataset._expand_channels(native.decode_png_torch(p, d)[0])
+            if img.shape != want.shape or not np.array_equal(img, want):
+                fail(f"decode at downscale {d}: {p} is not decode_png_torch's "
+                     "bit for bit")
+        facts[f"downscale_{d}"] = dict(
+            size=[lib_fs.width, lib_fs.height], views=len(lib_fs),
+            equal_to_decode_png_torch=True,
+            max_abs_diff_from_pil_state=max(
+                float(np.abs(a - b).max())
+                for a, b in zip(lib_fs.images, pil_fs.images)),
+            load_s=[s1, s2], load_s_without=[s0, s3])
+
+    fs2, xyz, rgb = colmap.load_colmap(root, downscale=2, device=dev)
+    init = GaussianModel.from_points(xyz, rgb, sh_degree=3, device=dev)
+    cfg2 = RasterConfig(image_width=fs2.width, image_height=fs2.height,
+                        pair_capacity=1 << 21, exact_tile_test=True)
+    with torch.inference_mode():
+        demand = max(int(b.num_pairs + b.overflow) for b in (
+            binning.bin_splats(project_gaussians(init, c, cfg2), cfg2)
+            for c in fs2.cameras))
+    c = cfg2.chunk_size
+    cap = -(-int(DS_PAIR_SLACK * demand) // c) * c
+    del fs2, init
+    fetched = []
+    fetch = native.ImagePrefetcher.fetch
+
+    def counting_fetch(pf, job):
+        got = fetch(pf, job)
+        fetched.append(got is not None)
+        return got
+
+    native.ImagePrefetcher.fetch = counting_fetch
+    try:
+        st, launches = counted(cuda_lib, lambda: app_train.run([
+            "--dataset", root, "--downscale", "2", "--holdout-every",
+            str(DS_HOLDOUT), "--exact-tiles", "--pair-capacity", str(cap),
+            "--steps", str(NATIVE_TRAIN_STEPS), "--device", "cuda",
+            "--log-level", "warn"]))
+    finally:
+        native.ImagePrefetcher.fetch = fetch
+    if len(fetched) < DS_VIEWS or not all(fetched):
+        fail(f"train --downscale 2: {sum(fetched)} of {len(fetched)} "
+             f"images came through the prefetcher, expected {DS_VIEWS}")
+    drops = (st["target_overflow"] + st["target_truncated"]
+             + st["holdout_overflow"] + [st["final_overflow"],
+                                         st["final_truncated"]])
+    if any(drops) or not np.isfinite(st["losses"]).all() or len(
+            st["losses"]) != NATIVE_TRAIN_STEPS:
+        fail(f"train --downscale 2: drops {drops}, losses {st['losses']}")
+    facts["train"] = dict(
+        downscale=2, steps=NATIVE_TRAIN_STEPS, prefetched=len(fetched),
+        views=st["views"], probed_demand=demand, pair_capacity=cap,
+        losses=st["losses"], holdout_psnr=st["eval_psnr"],
+        median_step_ms=float(np.median(st["step_ms"])),
+        target_overflow=max(st["target_overflow"]),
+        final_overflow=st["final_overflow"])
+    return facts, launches
+
+
+def scene_tool_phase(tmp: str, ply_path: str, dev, fov: float,
+                     capacity, cuda_lib):
+    """18 (d): app/scene_tool.py on phase 13's exported PLY (prune,
+    --max-sh 0, --center-flip, --stats, both outputs): the --stats line's
+    count equal to the survivors, both outputs rendered by app/main.py
+    with overflow 0. Then the app scene loaded raw at full width with
+    strict C, and its center_flip'ped copy through the mirrored camera V @
+    [[F, c], [0, 1]] (tests/test_scene_tool.py:98-130): within MIRROR_TOL
+    but for at most MIRROR_SHARE of the values (splats whose alpha rounds
+    across alpha_min, or a pixel across strict termination, in one of the
+    two frames), each within MIRROR_CUTOFF_X alpha_min; the same copy with
+    its quats left unmirrored shown far past that. Returns (facts, the
+    launches of the tool's renders)."""
+    import io
+
+    import torch
+    import gaussian_splat_ipu_tpu_torch.app.main as app_main
+    from gaussian_splat_ipu_tpu_torch.app import scene_tool
+    from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
+    from gaussian_splat_ipu_tpu_torch.io import splat as splat_io
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    from gaussian_splat_ipu_tpu_torch.train import checkpoint
+    from gaussian_splat_ipu_tpu_torch.utils import image as image_util
+    from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+    src = os.path.join(tmp, "ds.ply")             # phase 13's export
+    raw = checkpoint.import_ply(src, device="cpu")
+    opac = 1.0 / (1.0 + np.exp(-raw.opacities.numpy()))
+    survivors = int((opac >= TOOL_PRUNE_OPACITY).sum())
+    out_ply = os.path.join(tmp, "tool.ply")
+    out_splat = os.path.join(tmp, "tool.splat")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = scene_tool.main([
+            "--input", src, "--prune-opacity", str(TOOL_PRUNE_OPACITY),
+            "--max-sh", "0", "--center-flip", "--stats", "--output",
+            out_ply, "--output-splat", out_splat, "--log-level", "warn"])
+    tool_s = time.perf_counter() - t0
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if (rc or stats["gaussians"] != survivors or stats["sh_degree"] != 0
+            or splat_io.count_records(out_splat) != survivors):
+        fail(f"scene tool: rc {rc}, stats {stats}, {survivors} survivors of "
+             f"{raw.num_gaussians}")
+
+    def render(label: str, path: str) -> dict:
+        png = os.path.join(tmp, f"tool_{label}.png")
+        r = app_main.run(["--input", path, "--width", str(WIDTH),
+                          "--height", str(HEIGHT), "--frames", "2",
+                          "--pair-capacity", "0", "--device", "cuda",
+                          "--output", png, "--log-level", "warn"])
+        img = image_util.decode_png(open(png, "rb").read())
+        lit = int((img[..., 3] > 0).sum())
+        if r["overflow"] or r["truncated"] or lit == 0:
+            fail(f"the app's render of the scene tool's {label}: overflow "
+                 f"{r['overflow']}, truncated {r['truncated']}, {lit} lit "
+                 "pixels")
+        return dict(num_pairs=r["num_pairs"],
+                    pair_capacity=r["pair_capacity"],
+                    overflow=r["overflow"], lit_pixels=lit)
+
+    renders, launches = counted(cuda_lib, lambda: {
+        "ply": render("ply", out_ply), "splat": render("splat", out_splat)})
+
+    scene = scene_io.load_scene(ply_path, center=False, flip_z=False,
+                                device=dev)
+    cam = Camera.orbit(scene.bb_min, scene.bb_max, fov, WIDTH / HEIGHT,
+                       rot_y_deg=30.0, device=dev)
+    cfg = RasterConfig(image_width=WIDTH, image_height=HEIGHT,
+                       pair_capacity=1 << 22)
+    with torch.inference_mode():
+        b = binning.bin_splats(project_gaussians(scene.model, cam, cfg), cfg)
+        demand = int(b.num_pairs + b.overflow)
+        cfg = dataclasses.replace(cfg, pair_capacity=capacity(
+            demand, cfg.chunk_size))
+        ref = pipeline.render(scene.model, cam, cfg)
+        mirrored, _ = scene_tool.process(scene.model, center_flip=True)
+        means = scene.model.means.cpu().numpy()
+        minv = np.eye(4, dtype=np.float32)
+        minv[:3, :3] = np.diag([1.0, 1.0, -1.0])
+        minv[:3, 3] = (means.min(0) + means.max(0)) * 0.5
+        cam2 = Camera(torch.tensor(cam.view.cpu().numpy() @ minv,
+                                   device=dev), cam.proj, cam.env_rot)
+        got = pipeline.render(mirrored, cam2, cfg)
+        p = mirrored.to_numpy()
+        p["quats"] = scene.model.quats.cpu().numpy()
+        wrong = pipeline.render(GaussianModel.from_numpy(p, dev), cam2, cfg)
+
+    def diff(out) -> dict:
+        d = (out.image - ref.image).abs()
+        over = d > MIRROR_TOL
+        return dict(max_abs_err=float(d.max()), values_over_tol=int(
+            over.sum()), share_over_tol=float(over.float().mean()),
+            pixels_over_tol=int(over.any(-1).sum()),
+            overflow=int(out.overflow))
+
+    mirror, unmirrored = diff(got), diff(wrong)
+    cutoff = MIRROR_CUTOFF_X * cfg.alpha_min
+    if (mirror["overflow"] or int(ref.overflow)
+            or mirror["share_over_tol"] > MIRROR_SHARE
+            or mirror["max_abs_err"] > cutoff
+            or unmirrored["share_over_tol"] <= MIRROR_SHARE):
+        fail(f"mirrored render: {mirror} (tol {MIRROR_TOL} but for a share "
+             f"of {MIRROR_SHARE}, each within {cutoff}); quats unmirrored: "
+             f"{unmirrored}")
+    return dict(
+        input=os.path.basename(src), input_gaussians=raw.num_gaussians,
+        prune_opacity=TOOL_PRUNE_OPACITY, stats=stats, tool_s=tool_s,
+        renders=renders, mirror=dict(
+            gaussians=scene.num_gaussians, width=WIDTH, height=HEIGHT,
+            strict=True, demand=demand, pair_capacity=cfg.pair_capacity,
+            pairs=int(ref.num_pairs), tol=MIRROR_TOL,
+            share_allowed=MIRROR_SHARE, cutoff_bound=cutoff, **mirror,
+            quats_unmirrored=unmirrored)), launches
+
+
+def clustered_phase(cfg_1m, cam, capacity, cuda_ms, cuda_lib):
+    """18 (e): GaussianModel.clustered(2^20, seed SEED) at the 1M config
+    (tile_group=3, exact tiles, strict) with 1.15x the probed demand of the
+    angle-0 frame (bench.py:261-275): one frame with overflow 0; then C
+    strict on its table against the plain version (TOL_RASTER), its device
+    time (DeviceTimer), the plain version's (its one call) and its bound
+    from the live evaluations. Returns (facts, the frame's launches)."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
+    from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    from gaussian_splat_ipu_tpu_torch.render.tile_raster import (
+        rasterize_tiles_torch)
+    dev = cam.view.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = GaussianModel.clustered(N_1M, generator=gen, device=dev)
+    cfg = dataclasses.replace(cfg_1m, pair_capacity=1 << 22)
+    with torch.inference_mode():
+        b = binning.bin_splats(project_gaussians(model, cam, cfg), cfg)
+        demand = int(b.num_pairs + b.overflow)
+        del b
+        cfg = dataclasses.replace(cfg, pair_capacity=capacity(
+            demand, cfg.chunk_size))
+        out, launches = counted(cuda_lib, lambda: pipeline.render(
+            model, cam, cfg))
+        if int(out.overflow) or not bool(torch.isfinite(out.image).all()):
+            fail(f"clustered 1M frame: overflow {int(out.overflow)} or "
+                 "non-finite pixels")
+        binned = binning.bin_splats(project_gaussians(model, cam, cfg), cfg)
+        got = rasterize.rasterize_tiles(binned, cfg)
+        # The plain version walks every tile to the longest range (over
+        # 100k pairs in one tile here, seconds a call): its one comparison
+        # call is its timing, host time included as in every plain timing.
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = rasterize_tiles_torch(binned, cfg)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = float((got - ref).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= TOL_RASTER):
+            fail(f"clustered 1M: C strict {err} from the plain version "
+                 f"(tolerance {TOL_RASTER})")
+        work = raster_work(binned, cfg,
+                           rasterize.rasterize_tiles_aux(binned, cfg)[1])
+        ms = cuda_ms(lambda: rasterize.rasterize_tiles(binned, cfg),
+                     label="rasterize_strict clustered 1M")
+        counts = binned.tile_ends - binned.tile_starts
+    b = bound(raster_bytes(binned, cfg, 16),
+              OPS_FWD_LIVE * work["live_evaluations"])
+    return dict(
+        gaussians=N_1M, clusters=64, tile_group=cfg.tile_group,
+        exact_tile_test=True, strict=True, demand=demand,
+        pair_capacity=cfg.pair_capacity, pairs=int(out.num_pairs),
+        overflow=int(out.overflow), truncated=int(out.truncated),
+        tiles=int(binned.tile_starts.shape[0]),
+        range_pairs_max=int(counts.max()),
+        range_pairs_median=float(counts.float().median()),
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, share=b["bound_ms"] / ms,
+        **b, **work), launches
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--mh-train"]:
@@ -2321,6 +2739,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "one CUDA GPU")
 
+    from gaussian_splat_ipu_tpu_torch.io import native
     from gaussian_splat_ipu_tpu_torch.io import scene as scene_io
     from gaussian_splat_ipu_tpu_torch.models.camera import Camera
     from gaussian_splat_ipu_tpu_torch.models.gaussians import (
@@ -3292,6 +3711,34 @@ def main() -> int:
                ("coverage_masks", "stream_expand", "rasterize_relaxed"),
                captured)
     say("trace", card=card, **facts, launches=launches["trace"])
+
+    # -- 18. the host library, the scene tool, a clustered 1M scene -------
+    phase("18. host library, scene tool, clustered 1M")
+    say("native_build", card=card, **native_build(native))
+    with torch.inference_mode():
+        frame = pipeline.render(app_scene.model, app_cam(0.0).to(dev),
+                                cfg_eng_app).image[..., :3].cpu().numpy()
+    say("native_functions", card=card, times="host ms on the card machine",
+        **native_functions(tmp, model_1m, frame, native))
+    facts, launches["native decode train"] = native_decode(ds, dev, native,
+                                                           cuda_lib)
+    need_launches("train --downscale 2", launches["native decode train"],
+                  ("coverage_masks", "stream_expand", "rasterize_strict_aux",
+                   "rasterize_bwd"), 1)
+    say("native_decode", card=card, times="host s on the card machine",
+        **facts, launches=launches["native decode train"])
+    facts, launches["scene tool"] = scene_tool_phase(tmp, ply_path, dev, fov,
+                                                     capacity, cuda_lib)
+    need_launches("scene tool renders", launches["scene tool"],
+                  ("stream_expand", "rasterize_relaxed"), 1)
+    say("scene_tool", card=card, **facts, launches=launches["scene tool"])
+    facts, launches["clustered 1M"] = clustered_phase(
+        cfg_1m, cam_1m(0.0), capacity, cuda_ms, cuda_lib)
+    need_launches("clustered 1M frame", launches["clustered 1M"],
+                  ("coverage_masks", "stream_expand", "rasterize_strict"), 1)
+    say("clustered_1m", card=card, uniform_1m_ms=results[
+        "rasterize_strict"]["ms"], **facts, launches=launches["clustered 1M"])
+    say("timer", **timer.summary())
     phases.close()
     say("tracepoints", **profiling.tracepoint_summary())
 

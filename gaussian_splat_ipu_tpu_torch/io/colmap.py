@@ -27,7 +27,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from gaussian_splat_ipu_tpu_torch.io.dataset import FrameSet, load_image
+from gaussian_splat_ipu_tpu_torch.io.dataset import FrameSet, load_images
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 
 log = logging.getLogger(__name__)
@@ -385,8 +385,9 @@ def load_colmap(root: str, downscale: int = 1,
     images: List[np.ndarray] = []
     depth_obs: List[np.ndarray] = []
     width = height = None
-    for im in order:
-        arr, _ = load_image(os.path.join(images_dir, im.name), resize)
+    decoded = load_images([os.path.join(images_dir, im.name)
+                           for im in order], resize)
+    for im, (arr, _) in zip(order, decoded):
         h, w = arr.shape[:2]
         if width is None:
             width, height = w, h

@@ -10,8 +10,10 @@ gaussian_splat_ipu_tpu/io/dataset.py:36-169).
 Each camera is converted once to the renderer's convention by
 Camera.from_intrinsics: flip the y and z axes of the camera-to-world
 (OpenGL -> OpenCV camera axes), invert, pass the pixel intrinsics. Images
-decode with PIL, top row first (the rendered array's orientation), as f32
-in [0, 1] on the host; cameras are made on an explicit device.
+decode top row first (the rendered array's orientation), as f32 in [0, 1]
+on the host: through the native prefetcher when the port's host library is
+built (io/native.py), else with PIL. Cameras are made on an explicit
+device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from gaussian_splat_ipu_tpu_torch.io import native
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 
 # OpenGL camera axes (x right, y up, z backward) -> OpenCV camera axes
@@ -41,6 +45,16 @@ class FrameSet:
 
     def __len__(self) -> int:
         return len(self.cameras)
+
+    def stacked(self, device):
+        """(cameras, images) for view-batch training: one Camera whose view,
+        proj and env_rot carry a leading frame axis (Camera.unbind gives
+        the per-view cameras parallel/distributed.py's view-batch step
+        takes), and the images as one (F, H, W, C) f32 tensor, both on
+        `device`."""
+        cams = Camera(*(torch.stack([getattr(c, k) for c in self.cameras])
+                        .to(device) for k in ("view", "proj", "env_rot")))
+        return cams, torch.from_numpy(np.stack(self.images)).to(device)
 
 
 def _expand_channels(arr: np.ndarray) -> np.ndarray:
@@ -72,6 +86,27 @@ def load_image(path: str, downscale: int):
     return _expand_channels(arr), orig
 
 
+def load_images(paths, downscale: int) -> list:
+    """load_image's (image, (W0, H0)) for each path, in order. With the
+    native library built, every path goes to an ImagePrefetcher up front
+    (its workers decode while the earlier images are taken) and a file it
+    rejects goes to load_image; at downscale > 1 its images are d x d block
+    averages, not PIL's bilinear resize (the reference's two states)."""
+    if not native.available():
+        return [load_image(p, downscale) for p in paths]
+    pf = native.ImagePrefetcher()
+    try:
+        jobs = [pf.submit(p, downscale) for p in paths]
+        out = []
+        for p, job in zip(paths, jobs):
+            got = pf.fetch(job)
+            out.append(load_image(p, downscale) if got is None
+                       else (_expand_channels(got[0]), got[1]))
+        return out
+    finally:
+        pf.close()
+
+
 def load_transforms(path: str, downscale: int = 1,
                     max_frames: Optional[int] = None, near: float = 0.01,
                     far: float = 1000.0, *, device) -> FrameSet:
@@ -94,13 +129,16 @@ def load_transforms(path: str, downscale: int = 1,
     if not frames:
         raise ValueError(f"{path}: no frames")
 
-    cameras, images = [], []
-    width = height = None
+    paths = []
     for fr in frames:
         img_path = os.path.join(root, fr["file_path"])
         if not os.path.splitext(img_path)[1]:
             img_path += ".png"              # blender's bare stems
-        img, (w0, h0) = load_image(img_path, downscale)
+        paths.append(img_path)
+
+    cameras, images = [], []
+    width = height = None
+    for fr, (img, (w0, h0)) in zip(frames, load_images(paths, downscale)):
         h, w = img.shape[:2]
         if width is None:
             width, height = w, h

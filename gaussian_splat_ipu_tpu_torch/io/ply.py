@@ -1,6 +1,7 @@
 """PLY and XYZ point-cloud reading and PLY writing with numpy alone: the
 port's own copy of the reference's parser (gaussian_splat_ipu_tpu/io/
-ply.py), without its native fast path. `.splat` files are read by
+ply.py), whose float columns are stacked by the native host library when it
+is built (io/native.py) and by numpy otherwise. `.splat` files are read by
 io/splat.py. A row range of the vertices can be read alone (sharded
 loading, parallel/multihost.py): a binary vertex table of scalars is read
 with seeks, other layouts are parsed whole and sliced.
@@ -18,6 +19,8 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from gaussian_splat_ipu_tpu_torch.io import native
 
 _PLY_TO_NUMPY = {
     "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
@@ -246,6 +249,9 @@ def gaussian_fields_from_ply(ply: PlyData):
     cols = {n for n, _ in v.properties}
 
     def stack(names):
+        fast = native.stack_f32_columns(v.data, names)
+        if fast is not None:
+            return fast
         return np.stack([v.column(n).astype(np.float32) for n in names], -1)
 
     out = {"means": stack(["x", "y", "z"])}

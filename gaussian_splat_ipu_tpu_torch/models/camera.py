@@ -25,6 +25,13 @@ class Camera:
                         else torch.as_tensor(env_rot, dtype=torch.float32,
                                              device=view.device))
 
+    def unbind(self) -> tuple:
+        """The per-frame cameras of a camera whose tensors carry a leading
+        frame axis (FrameSet.stacked), as the view-batch step takes them
+        (parallel/distributed.make_view_batch_train_step)."""
+        return tuple(Camera(v, p, e) for v, p, e in zip(
+            self.view, self.proj, self.env_rot))
+
     def to(self, device, non_blocking: bool = False) -> "Camera":
         return Camera(self.view.to(device, non_blocking=non_blocking),
                       self.proj.to(device, non_blocking=non_blocking),

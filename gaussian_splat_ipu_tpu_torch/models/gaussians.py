@@ -12,6 +12,7 @@ Standard 3DGS parameters, structure-of-arrays:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,12 +32,13 @@ class GaussianModel(nn.Module):
     the copy a trainer differentiates."""
 
     def __init__(self, means, log_scales, quats, opacities, sh,
-                 requires_grad: bool = False):
+                 requires_grad: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for name, value in zip(FIELDS, (means, log_scales, quats,
                                          opacities, sh)):
             setattr(self, name, nn.Parameter(
-                torch.as_tensor(value, dtype=torch.float32),
+                torch.as_tensor(value, dtype=dtype),
                 requires_grad=requires_grad))
 
     def trainable(self) -> "GaussianModel":
@@ -56,6 +58,11 @@ class GaussianModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.means.device
+
+    def astype(self, dtype: torch.dtype) -> "GaussianModel":
+        """The five fields cast to `dtype` (e.g. torch.bfloat16)."""
+        return GaussianModel(*(getattr(self, k).detach().to(dtype)
+                               for k in FIELDS), dtype=dtype)
 
     def pad_to(self, n: int) -> "GaussianModel":
         """Pad to n gaussians; padding has opacity -30 and log-scale -30,
@@ -153,11 +160,7 @@ class GaussianModel(nn.Module):
         (models/gaussians.py:159-172); torch draws other bits than JAX.
         The generator must live on `device`."""
         kk = (sh_degree + 1) ** 2
-
-        def uniform(shape, lo, hi):
-            u = torch.rand(shape, generator=generator, device=device)
-            return u * (hi - lo) + lo
-
+        uniform = functools.partial(_uniform, generator, device)
         return cls(
             means=uniform((n, 3), -extent, extent),
             log_scales=uniform((n, 3), -5.5, -3.5) + math.log(extent),
@@ -166,10 +169,50 @@ class GaussianModel(nn.Module):
             sh=uniform((n, kk, 3), -1.0, 1.0),
         )
 
+    @classmethod
+    def clustered(cls, n: int, *, generator: torch.Generator, device,
+                  n_clusters: int = 64, sh_degree: int = 0,
+                  extent: float = 1.0) -> "GaussianModel":
+        """Clustered synthetic scene with the reference's distributions
+        (models/gaussians.py:175-208): n_clusters centres uniform in
+        +-0.8 extent, each with a log-uniform spread in [0.02, 0.3] extent;
+        means at a uniformly drawn centre plus a normal offset times its
+        spread; log-scales N(-4.5 + ln extent, 0.6); normal quats;
+        opacities U(-4, 6); SH U(-1, 1). Each draw comes from `generator`
+        in turn (the reference draws its centres and SH from one key);
+        torch draws other bits than JAX. The generator must live on
+        `device`."""
+        kk = (sh_degree + 1) ** 2
+        uniform = functools.partial(_uniform, generator, device)
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=device)
+
+        centers = uniform((n_clusters, 3), -0.8 * extent, 0.8 * extent)
+        spread = torch.exp(uniform((n_clusters,), math.log(0.02 * extent),
+                                   math.log(0.3 * extent)))
+        assign = torch.randint(0, n_clusters, (n,), generator=generator,
+                               device=device)
+        means = centers[assign] + normal((n, 3)) * spread[assign][:, None]
+        return cls(
+            means=means,
+            log_scales=normal((n, 3)) * 0.6 - 4.5 + math.log(extent),
+            quats=normal((n, 4)),
+            opacities=uniform((n,), -4.0, 6.0),
+            sh=uniform((n, kk, 3), -1.0, 1.0),
+        )
+
     def to_numpy(self) -> dict:
         """The five parameter arrays as numpy, keyed as from_numpy takes
         them."""
         return {k: getattr(self, k).detach().cpu().numpy() for k in FIELDS}
+
+
+def _uniform(generator: torch.Generator, device, shape, lo: float,
+             hi: float) -> torch.Tensor:
+    """U(lo, hi) f32 draws of `shape` from `generator`."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (hi - lo) + lo
 
 
 def mean_knn_distance(xyz: torch.Tensor, k: int = 3,

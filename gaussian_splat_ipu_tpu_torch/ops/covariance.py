@@ -87,6 +87,24 @@ def conic(a, b, c, eps: float = 1e-12):
     return c * det_inv, -b * det_inv, a * det_inv, valid
 
 
+def eigenvalues_2d(a, b, c, floor: float = 0.1):
+    """Eigenvalues (larger, smaller) of the 2x2 covariance [[a, b], [b, c]],
+    the discriminant floored at `floor` (reference
+    Gaussian2D::ComputeEigenvalues, ipu_geometry.hpp:247-261)."""
+    det = a * c - b * b
+    mid = 0.5 * (a + c)
+    disc = torch.sqrt(torch.clamp_min(mid * mid - det, floor))
+    return mid + disc, mid - disc
+
+
+def splat_radius(a, b, c):
+    """3-sigma pixel radius of a splat, ceil'd: ceil(3 sqrt(largest
+    eigenvalue)) (reference Gaussian2D::GetBoundingBox,
+    ipu_geometry.hpp:263-276)."""
+    l1, _ = eigenvalues_2d(a, b, c)
+    return torch.ceil(3.0 * torch.sqrt(torch.clamp_min(l1, 0.0)))
+
+
 def splat_extent(a, c, opacity=None, alpha_min: float = 1.0 / 255.0,
                  max_sigma: float = 3.0):
     """Per-axis half-extents (rx, ry), ceil'd, of the footprint

@@ -14,6 +14,10 @@ SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
          -0.5900435899266435)
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def dc_to_rgb(f_dc: torch.Tensor) -> torch.Tensor:
     """(N, 3) DC coefficients -> RGB = SH_C0 * f_dc + 0.5, clamped at 0
     (reference src/main/splat.cpp:136-148)."""

@@ -66,6 +66,12 @@ def restore_checkpoint(path: str, template):
             extra.from_numpy_like(leaves[n:], dev))
 
 
+def gaussian_columns(model: GaussianModel) -> dict:
+    """The standard 3DGS PLY column set in file order: io/scene's
+    gaussian_columns, under the reference's name for it here."""
+    return scene_io.gaussian_columns(model)
+
+
 def export_ply(path: str, model: GaussianModel) -> None:
     """Write the parameters as a standard 3DGS PLY."""
     scene_io.write_ply(path, model)

@@ -10,10 +10,16 @@ import zlib
 
 import numpy as np
 
+from gaussian_splat_ipu_tpu_torch.io import native
+
 
 def to_uint8(image: np.ndarray, exposure: float = 1.0,
              gamma: float = 1.0) -> np.ndarray:
-    """f32 [0,1]-ish image -> u8, with optional exposure and gamma."""
+    """f32 [0,1]-ish image -> u8, with optional exposure and gamma; through
+    the native library when it is built (io/native.py)."""
+    fast = native.to_uint8(np.asarray(image, np.float32), exposure, gamma)
+    if fast is not None:
+        return fast
     img = np.asarray(image, np.float32) * exposure
     if gamma != 1.0:
         img = np.power(np.clip(img, 0.0, None), 1.0 / gamma)

@@ -5,8 +5,9 @@ renders a tiny frame, bins it into row buckets, takes one train step on
 the CPU and one through the engine's step program, writes and reads a
 .splat and a COLMAP capture, seeds a model from points, runs the
 training extras (a densify step and event, an aux step (pose + exposure)
-and the sparse depth loss) and the distributed path, and renders the
-dense oracle inside a profiling trace and Tracepoint."""
+and the sparse depth loss) and the distributed path, renders the
+dense oracle inside a profiling trace and Tracepoint, runs the scene tool
+and builds the native host library into a temporary directory."""
 
 import os
 import subprocess
@@ -148,6 +149,23 @@ CHILD = textwrap.dedent("""
     assert profiling.tracepoint_summary()["oracle"]["count"] == 1
     assert os.path.isfile(os.path.join(td, "trace", "trace.json"))
     assert profiling.two_point_time(lambda k: None) > 0.0
+
+    from gaussian_splat_ipu_tpu_torch.app import scene_tool
+    from gaussian_splat_ipu_tpu_torch.io import native
+    assert scene_tool.main([
+        "--input", os.path.join(td, "s.ply"), "--prune-opacity", "0.2",
+        "--max-sh", "1", "--center-flip", "--output",
+        os.path.join(td, "t.ply"), "--output-splat",
+        os.path.join(td, "t.splat"), "--stats", "--log-level", "off"],
+        device="cpu") == 0
+    assert splat.count_records(os.path.join(td, "t.splat")) > 0
+    native.BUILD_DIR = os.path.join(td, "native")
+    assert native.build().startswith(native.BUILD_DIR) and native.available()
+    write_png(os.path.join(td, "p.png"), np.full((6, 5, 3), 0.5))
+    pf = native.ImagePrefetcher(1)
+    img, size = pf.fetch(pf.submit(os.path.join(td, "p.png"), 2))
+    pf.close()
+    assert img.shape == (3, 2, 3) and size == (5, 6)
     assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
     assert not any(k == REF or k.startswith(REF + ".") for k in sys.modules)
     print("OK")
