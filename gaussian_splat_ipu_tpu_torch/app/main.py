@@ -62,6 +62,7 @@ from gaussian_splat_ipu_tpu_torch.render.projection import project_gaussians
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.ui.async_task import AsyncTask
 from gaussian_splat_ipu_tpu_torch.utils import image as image_util
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig,
                                                       check_supported)
@@ -131,6 +132,10 @@ def parse_args(argv=None):
     p.add_argument("--frames-in-flight", type=int, default=2,
                    help="frames queued on the device before the oldest "
                         "is retired (1 = fully synchronous)")
+    p.add_argument("--spans", default="", metavar="PATH",
+                   help="record the engine's and the frame program's "
+                        "spans (utils/profiling.py) and write them to PATH "
+                        "as a Chrome trace at exit")
     return p.parse_args(argv)
 
 
@@ -276,10 +281,12 @@ def orbit_camera(scene, state: dict, aspect: float) -> Camera:
 
 def run(argv=None) -> dict:
     """The body of main: render the frames and return their statistics —
-    frame_ms (device time per frame on CUDA, host time on the CPU), the
-    last frame's overflow, truncated, num_pairs (its FrameOutput.count),
-    exchange_overflow and tile_counts, the program it ran, each program's
-    capture seconds and the mesh's shard count (0 without --distributed)."""
+    frame_ms (on CUDA the device span of each frame's engine.run, from
+    the start of its copy-in to the end of its output clones; host time
+    on the CPU), the last frame's overflow, truncated, num_pairs (its
+    FrameOutput.count), exchange_overflow and tile_counts, the program it
+    ran, each program's capture seconds and the mesh's shard count (0
+    without --distributed)."""
     args = parse_args(argv)
     if args.distributed > 1 and args.device == "points":
         raise SystemExit("--distributed requires the splat pipeline "
@@ -297,7 +304,26 @@ def run(argv=None) -> dict:
         device="cuda" if on_cuda else "cpu",
         compile_cache_dir=args.compile_cache))
     device = engine.device
+    # Frame times on the card are the engine's engine.run device spans: a
+    # recorder of that span alone unless --spans records every span (or
+    # the caller already records).
+    rec, own = profiling.active, profiling.active is None
+    if own and (args.spans or on_cuda):
+        rec = profiling.start(device, only=None if args.spans
+                              else ("engine.run",))
+    try:
+        return _run(args, engine, rec, on_cuda,
+                    clear_spans=own and not args.spans)
+    finally:
+        if own and rec is not None:
+            if args.spans:
+                profiling.export_spans(args.spans, rec)
+                log.info("spans -> %s", args.spans)
+            profiling.stop()
 
+
+def _run(args, engine, rec, on_cuda: bool, clear_spans: bool) -> dict:
+    device = engine.device
     with torch.inference_mode():
         scene = load_scene(args.input, device=device)
         model = scene.model
@@ -365,25 +391,33 @@ def run(argv=None) -> dict:
         nframes = max(args.frames, 1)
         interactive = ui is not None and args.frames == 0
         inflight = collections.deque()
-        frame_ms = []
+        frame_ms = []   # host ms on the CPU, engine items on the card
+        device_ms = {}  # engine item -> its engine.run device ms
         # (overflow, truncated, exchange_overflow) at the telemetry cadence
         drops = (0, 0, 0)
         last = None
         t_last = None
 
+        def read_spans():
+            # Called with the device idle (collect synchronises), so the
+            # app's own recorder of engine.run alone can be cleared.
+            device_ms.update(profiling.item_ms(rec.collect(), "engine.run"))
+            if clear_spans:
+                rec.clear()
+
         def retire_one():
             nonlocal last, drops, t_last
-            out, ev0, ev1, host_ms, t_submit = inflight.popleft()
+            out, done, tag, t_submit = inflight.popleft()
             k = len(frame_ms)
-            if on_cuda:
-                ev1.synchronize()
-                frame_ms.append(ev0.elapsed_time(ev1))
-            else:
-                frame_ms.append(host_ms)
+            frame_ms.append(tag)
+            if done is not None:
+                done.synchronize()
             now = time.perf_counter()
             if k % _TELEMETRY_EVERY == 0:
                 drops = (int(out.overflow), int(out.truncated),
                          int(out.exchange_overflow))
+                if on_cuda:
+                    read_spans()
                 if any(drops):
                     log.warning("frame %d: dropped splat pairs (overflow=%d "
                                 "over --pair-capacity, truncated=%d past the "
@@ -391,7 +425,8 @@ def run(argv=None) -> dict:
                                 "at the all_to_all buckets)", k, *drops)
                 log.info("frame %d: %.3f ms %s, %.2f ms since the last "
                          "retire, latency %.1f ms (count %d)", k,
-                         frame_ms[-1], "device" if on_cuda else "host",
+                         device_ms.get(tag, float("nan")) if on_cuda
+                         else tag, "device" if on_cuda else "host",
                          (now - (t_last or t_submit)) * 1e3,
                          (now - t_submit) * 1e3, int(out.count))
             t_last = now
@@ -435,18 +470,16 @@ def run(argv=None) -> dict:
                 elif not interactive:
                     state["ry"] = 360.0 * i / nframes
                 cam = orbit_camera(scene, state, aspect)
-                ev0 = ev1 = None
                 t_submit = time.perf_counter()
-                if on_cuda:
-                    ev0 = torch.cuda.Event(enable_timing=True)
-                    ev1 = torch.cuda.Event(enable_timing=True)
-                    ev0.record()
                 out = engine.run(program, model, cam.view, cam.proj,
                                  cam.env_rot)
+                # The retire waits for the frame on this event; its time
+                # is the engine's span.
+                done = torch.cuda.Event() if on_cuda else None
                 if on_cuda:
-                    ev1.record()
-                inflight.append((out, ev0, ev1,
-                                 (time.perf_counter() - t_submit) * 1e3,
+                    done.record()
+                inflight.append((out, done, engine.last_item if on_cuda
+                                 else (time.perf_counter() - t_submit) * 1e3,
                                  t_submit))
                 if len(inflight) >= max(args.frames_in_flight, 1):
                     retire_one()
@@ -463,6 +496,9 @@ def run(argv=None) -> dict:
                 ui.stop()
 
         image_util.write_png(args.output, last.image.cpu().numpy())
+        if on_cuda:
+            read_spans()
+            frame_ms = [device_ms.get(k, float("nan")) for k in frame_ms]
         stats = dict(frames=len(frame_ms), frame_ms=frame_ms,
                      median_ms=float(np.median(frame_ms)),
                      overflow=int(last.overflow),

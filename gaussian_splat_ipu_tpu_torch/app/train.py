@@ -128,6 +128,7 @@ from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.train import (appearance, aux_opt,
                                                 checkpoint, densify, depth,
                                                 losses, pose_opt, trainer)
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig,
                                                       check_supported)
@@ -235,6 +236,11 @@ def parse_args(argv=None):
     p.add_argument("--export-splat", default="",
                    help="write the trained scene as a web-viewer .splat "
                         "(u8-quantised)")
+    p.add_argument("--spans", default="", metavar="PATH",
+                   help="record the engine's and the step program's spans "
+                        "(utils/profiling.py) and write them to PATH as a "
+                        "Chrome trace at exit (process k of a multi-process "
+                        "run: PATH.k)")
     p.add_argument("--distributed", type=int, nargs="?", const=-1,
                    default=0, metavar="N",
                    help="sharded training: one shard per visible device of "
@@ -295,6 +301,20 @@ def run(argv=None) -> dict:
     engine = engine_lib.RenderEngine(RuntimeConfig(
         device=str(multihost.process_device(args.device)) if multiproc
         else args.device))
+    device = engine.device
+    rank = multihost.process_index() if multiproc else None
+    rec = profiling.start(device) if args.spans else None
+    try:
+        return _run(args, engine, multiproc)
+    finally:
+        if rec is not None:
+            path = args.spans if rank is None else f"{args.spans}.{rank}"
+            profiling.export_spans(path, rec)
+            profiling.stop()
+            log.info("spans -> %s", path)
+
+
+def _run(args, engine, multiproc: bool) -> dict:
     device = engine.device
     # A multi-process --distributed run shards over the processes: one
     # shard each, this process's on its own device.

@@ -64,6 +64,10 @@ _SIGNATURES = {
     # bg0, bg1, bg2, dfeat, stream
     "gsplat_rasterize_bwd": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _F, _F, _F, _F, _F, _P, _P),
+    # log, state, capacity, tag, stream
+    "gsplat_stamp": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
+    # words (page-locked host memory), timeout_ns, stream
+    "gsplat_anchor": (_P, ctypes.c_longlong, _P),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -16,6 +16,7 @@ from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu_torch.render import binning
 from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
 from gaussian_splat_ipu_tpu_torch.render.projection import project_gaussians
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
 
@@ -46,11 +47,18 @@ def _untile_crop(tiles: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
 
 def render(model: GaussianModel, camera: Camera, cfg: RasterConfig,
            xy_probe: torch.Tensor | None = None) -> RenderOutput:
-    """Render one frame on the model's device."""
-    splats = project_gaussians(model, camera, cfg, xy_probe=xy_probe)
-    binned = binning.bin_splats(splats, cfg)
-    tiles = rasterize.rasterize_tiles(binned, cfg)
-    image = _untile_crop(tiles, cfg)
+    """Render one frame on the model's device, in spans "project", "bin"
+    (kernels A and B), "raster" (C) and "untile" while spans are recorded
+    (utils/profiling.py)."""
+    dev = model.device
+    with profiling.span("project", dev):
+        splats = project_gaussians(model, camera, cfg, xy_probe=xy_probe)
+    with profiling.span("bin", dev):
+        binned = binning.bin_splats(splats, cfg)
+    with profiling.span("raster", dev):
+        tiles = rasterize.rasterize_tiles(binned, cfg)
+    with profiling.span("untile", dev):
+        image = _untile_crop(tiles, cfg)
     counts = binned.tile_ends - binned.tile_starts
     return RenderOutput(image=image, tile_counts=counts,
                         overflow=binned.overflow, num_pairs=binned.num_pairs,

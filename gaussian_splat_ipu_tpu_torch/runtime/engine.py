@@ -50,6 +50,14 @@ one first met inside a capture would be made in that graph's pool and
 keep the pool from ever being freed. On the shared stream the warm-ups
 make them once, outside any capture.
 
+Spans (utils/profiling.py). `register` is a Tracepoint "engine.register"
+(its host seconds are totalled whether or not spans are recorded), with
+spans "warmup" and "capture" inside. While spans are recorded, the
+stamps the program's own spans launch at capture become nodes of its
+graph, and each `run` is one numbered item: "engine.run" on the host and
+on the device around "copy_in", "replay" and "clone_out" on the host.
+Otherwise `run` checks one module attribute and nothing else.
+
 On the CPU (`device="cpu"`) a program is stored as it is and `run` calls it
 eagerly; nothing is captured. On CUDA there is no such fallback: a
 function that cannot be captured makes `register` raise. The one program
@@ -75,6 +83,7 @@ from torch.utils import _pytree as pytree
 
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
 
 log = logging.getLogger("gsplat")
@@ -140,6 +149,9 @@ class CompiledProgram:
     out_spec: Any = None
     grad: bool = False              # runs with autograd (a train step)
     eager: str = ""                 # why it runs uncaptured on CUDA
+    # The span recorder its graph stamps into: the graph holds its log's
+    # address, so the program keeps the log alive.
+    recorder: Any = None
 
 
 class RenderEngine:
@@ -155,6 +167,9 @@ class RenderEngine:
         self.config = config
         self.programs: Dict[str, CompiledProgram] = {}
         self.device = select_device(config.device)
+        # The recorder's item number of the last run while spans were
+        # recorded (utils/profiling.py), else None.
+        self.last_item: Optional[int] = None
         log.info("engine device: %s", self.device)
 
     def register(self, name: str, fn: Callable, example_args: tuple,
@@ -169,6 +184,10 @@ class RenderEngine:
         progress filter, engine.py:104-126). A program already registered
         under `name` is released first (module docstring). eager: a reason
         to store fn uncaptured on CUDA too, logged (module docstring)."""
+        with profiling.Tracepoint("engine.register"):
+            return self._register(name, fn, example_args, grad, eager)
+
+    def _register(self, name, fn, example_args, grad, eager):
         self.release(name)
         leaves, spec = pytree.tree_flatten(tuple(example_args))
         for leaf in leaves:
@@ -204,6 +223,9 @@ class RenderEngine:
             outs, prog.out_spec = pytree.tree_flatten(out)
             prog.out_leaves = tuple(outs)
             prog.compile_seconds = time.perf_counter() - t0
+            prog.recorder = profiling.active
+            if prog.recorder is not None:
+                prog.recorder.counters["captures." + name] += 1
             log.info("captured program '%s' in %.2fs", name,
                      prog.compile_seconds)
         self.programs[name] = prog
@@ -238,13 +260,15 @@ class RenderEngine:
             if side is None:
                 side = _CAPTURE_STREAMS[dev.index] = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), torch.inference_mode(not grad):
+            with torch.cuda.stream(side), torch.inference_mode(not grad), \
+                    profiling.span("warmup"):
                 for _ in range(WARMUP_CALLS):
                     fn(*args)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, stream=side), \
+                with profiling.span("capture"), \
+                        torch.cuda.graph(graph, stream=side), \
                         torch.inference_mode(not grad):
                     out = fn(*args)
             except Exception as e:
@@ -255,9 +279,11 @@ class RenderEngine:
                     t.copy_(s)
         return graph, out
 
-    def _load_inputs(self, prog: CompiledProgram, args: tuple) -> None:
+    def _load_inputs(self, prog: CompiledProgram, args: tuple) -> int:
         """Copy each tensor argument into its static input, skipping the
-        ones that are the static input itself."""
+        ones that are the static input itself; returns the bytes
+        copied."""
+        nbytes = 0
         leaves, spec = pytree.tree_flatten(tuple(args))
         if spec != prog.in_spec:
             raise TypeError(f"program '{prog.name}': arguments {spec} do not "
@@ -283,6 +309,8 @@ class RenderEngine:
                         f"{tuple(s.shape)} for the captured {d.dtype} "
                         f"{tuple(d.shape)}")
                 d.copy_(s, non_blocking=True)
+                nbytes += d.numel() * d.element_size()
+        return nbytes
 
     def run(self, name: str, *args):
         """Run a registered program by name (ProgramManager::run parity):
@@ -291,15 +319,41 @@ class RenderEngine:
         if name not in self.programs:
             raise KeyError(f"Tried to run unregistered program: '{name}'")
         prog = self.programs[name]
+        if profiling.active is not None:
+            return self._run_recorded(profiling.active, prog, args)
         with torch.inference_mode(not prog.grad):
             if prog.graph is None:
                 return prog.fn(*args)
             with torch.no_grad():
                 self._load_inputs(prog, args)
             prog.graph.replay()
-            return pytree.tree_unflatten(
-                [t.clone() if isinstance(t, torch.Tensor) else t
-                 for t in prog.out_leaves], prog.out_spec)
+            return self._outputs(prog)
+
+    def _outputs(self, prog: CompiledProgram):
+        return pytree.tree_unflatten(
+            [t.clone() if isinstance(t, torch.Tensor) else t
+             for t in prog.out_leaves], prog.out_spec)
+
+    def _run_recorded(self, rec, prog: CompiledProgram, args: tuple):
+        """run() while spans are recorded: the run is item k of the
+        recorder, a span "engine.run" on the host and on the device
+        (stamped before the copy-in and after the output clones, outside
+        the graph), around host spans "copy_in", "replay" and
+        "clone_out"; counts its program's replays and the bytes copied
+        in. self.last_item is k."""
+        k = self.last_item = rec.next_item()
+        with profiling.span("engine.run", self.device, item=k), \
+                torch.inference_mode(not prog.grad):
+            if prog.graph is None:
+                return prog.fn(*args)
+            rec.counters["replays." + prog.name] += 1
+            with profiling.span("copy_in"), torch.no_grad():
+                rec.counters["copy_in_bytes"] += self._load_inputs(prog,
+                                                                   args)
+            with profiling.span("replay"):
+                prog.graph.replay()
+            with profiling.span("clone_out"):
+                return self._outputs(prog)
 
     def manifest(self) -> str:
         """JSON program listing (ProgramManager::serialise parity)."""

@@ -46,6 +46,7 @@ from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render_image
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
 from gaussian_splat_ipu_tpu_torch.train import losses
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig)
 
@@ -149,9 +150,15 @@ def loss_fn(params: GaussianModel, camera: Camera, target: torch.Tensor,
             image_fn=render_image) -> torch.Tensor:
     """The render loss of `image_fn(params, camera, raster_cfg)`, the
     single-device render by default (parallel/distributed.py passes the
-    sharded one)."""
-    image = image_fn(params, camera, raster_cfg)
-    return losses.render_loss(image, target, train_cfg.ssim_weight)
+    sharded one). Spans "render" and "loss" while spans are recorded, and
+    the image marked "loss" (utils/profiling.mark: its gradient's arrival
+    ends "loss.bwd")."""
+    dev = params.device
+    with profiling.span("render", dev):
+        image = image_fn(params, camera, raster_cfg)
+    image = profiling.mark(image, "loss")
+    with profiling.span("loss", dev):
+        return losses.render_loss(image, target, train_cfg.ssim_weight)
 
 
 def means_lr(count: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
@@ -231,12 +238,16 @@ def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
                raster_cfg: RasterConfig, train_cfg: TrainConfig,
                image_fn=render_image):
     """One forward + backward + update step. Updates `state` in place and
-    returns (state, loss), loss a () device tensor."""
+    returns (state, loss), loss a () device tensor. Spans (while
+    recorded): loss_fn's, then "backward" around the gradients (with
+    "loss.bwd" inside) and "adam" around the update."""
     params = state.params
     loss = loss_fn(params, camera, target, raster_cfg, train_cfg, image_fn)
-    grads = torch.autograd.grad(loss, tuple(params.parameters()))
-    apply_param_updates(params, dict(zip(FIELDS, grads)), state.opt_state,
-                        train_cfg)
+    with profiling.span("backward", params.device):
+        grads = torch.autograd.grad(loss, tuple(params.parameters()))
+    with profiling.span("adam", params.device):
+        apply_param_updates(params, dict(zip(FIELDS, grads)),
+                            state.opt_state, train_cfg)
     state.step.add_(1)
     return state, loss.detach()
 

@@ -1,11 +1,10 @@
 """The port's profiling module (utils/profiling.py), as the JAX package's
-tests/test_profiling.py holds its own: Tracepoint totals and counts, the
-Tracepoint's record_function range in a CPU trace()'s Chrome file,
-FrameMeter's log line, and two_point_time on a fake clock (time.sleep
-made the reference's wall-clock test flaky)."""
+tests/test_profiling.py holds its own: Tracepoint totals and counts on a
+fake clock (time.sleep made the reference's wall-clock test flaky) and
+the Tracepoint's record_function range in a CPU trace()'s Chrome file.
+The span recorder's tests are in tests/test_torch_spans.py."""
 
 import json
-import logging
 import os
 
 import torch
@@ -54,33 +53,3 @@ def test_trace_writes_the_tracepoint_range(tmp_path):
     assert "splat_frame" in {e.key for e in prof.key_averages()}
     assert profiling.tracepoint_summary()["splat_frame"]["count"] == 1
     profiling.reset_tracepoints()
-
-
-def test_frame_meter_logs_rate(monkeypatch, caplog):
-    fake_clock(monkeypatch, [0.0, 1.0, 2.0, 4.0])
-    meter = profiling.FrameMeter(2_000_000, log_every_s=2.0)   # t = 0
-    with caplog.at_level(logging.INFO, logger="gsplat"):
-        meter.tick()       # t = 1: under the interval, silent
-        meter.tick()       # t = 2: 2 frames in 2 s
-        meter.tick()       # t = 4: 1 frame in 2 s
-    lines = [r.getMessage() for r in caplog.records]
-    assert lines == ["1.00 fps, 2.00 Msplats/s (2 frames)",
-                     "0.50 fps, 1.00 Msplats/s (3 frames)"]
-
-
-def test_two_point_time_cancels_the_fixed_cost(monkeypatch):
-    """run_k(k) advances a fake clock by 5 ms + 2 ms per iteration: the
-    method returns the 2 ms and runs 1, 9, 1, 9."""
-    now = [100.0]
-    calls = []
-
-    def run_k(k):
-        calls.append(k)
-        now[0] += 0.005 + 0.002 * k
-
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: now[0])
-    per = profiling.two_point_time(run_k, k1=1, k2=9)
-    assert calls == [1, 9, 1, 9]
-    assert abs(per - 0.002) < 1e-12
-    # A second run no slower than the first: the floor, not a negative.
-    assert profiling.two_point_time(lambda k: None, 1, 9) == 1e-12
