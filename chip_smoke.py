@@ -26,10 +26,13 @@ Phases, each printing its own lines:
      the event timer's; the row scan's design, and with --old DIR the
      parent commit's one-CTA-per-row scan.cu from DIR, timed in turns
      with it (old, new, new, old); the walked, kept and live evaluations
-     of C and D on the 1M and app frames. Then, on a small scene, the CUDA
-     binning (flat, rowseg R = 2 and 3, the three gather paths; tables
-     bit-identical), rasterizer, pair-table gradient and model gradients
-     against the CPU path;
+     of C and D on the 1M and app frames; the projection kernel G against
+     the plain projection at 2^20 gaussians at SH 3 and on the app scene
+     (render/kernels/project.compare: each value within its tolerances,
+     the radii that differ counted, none off a threshold), both timed.
+     Then, on a small scene, the CUDA binning (flat, rowseg R = 2 and 3,
+     the three gather paths; tables bit-identical), rasterizer,
+     pair-table gradient and model gradients against the CPU path;
   3. the app's render loop (app/main.py) on a seeded 37,941-gaussian PLY
      at 1280x720, 8 orbit frames, demand-probed capacity, its default
      relaxed termination;
@@ -375,6 +378,8 @@ KERNEL_SOURCES = {
     "row_cumsum_exclusive": ("scan.cu", "render/kernels/scan.py:51"),
     "stream_expand_seg": ("expand.cu", "render/kernels/expand.py:338"),
     "expand_pairs": ("expand_pairs.cu", "render/kernels/expand.py:121"),
+    "project_gaussians": ("project.cu", "render/projection.py (no Pallas "
+                          "kernel: XLA fuses the projection)"),
 }
 
 
@@ -1594,6 +1599,33 @@ def ui_session(ply_path: str, probe_cache: str, out_png: str,
                 splat_again_total=sum(back["counts"]),
                 keyframe_shape=list(key_shape), rc=result["rc"],
                 wall_s=time.perf_counter() - t0)
+
+
+def project_row(label: str, model, cam, cfg, cuda_ms) -> dict:
+    """Kernel G against the plain projection on one frame: compare's
+    errors (fails on a value outside its tolerances or a radius that
+    differs off a threshold), the device ms of both and G's byte bound
+    (each input byte it needs read once, each output written once)."""
+    from gaussian_splat_ipu_tpu_torch.render import projection
+    from gaussian_splat_ipu_tpu_torch.render.kernels import project
+    res = project.compare(projection.project_gaussians(model, cam, cfg),
+                          projection.project_gaussians_torch(model, cam, cfg),
+                          cfg)
+    bad = {k: v for k, v in res.items() if v and (
+        k.endswith("_outside") or k == "radius_differ_off_threshold")}
+    if bad:
+        fail(f"project_gaussians {label}: {bad}")
+    degree = (model.sh_degree if cfg.active_sh_degree < 0
+              else min(model.sh_degree, cfg.active_sh_degree))
+    kc = (degree + 1) ** 2
+    return dict(
+        shape=label, **res,
+        ms=cuda_ms(lambda: projection.project_gaussians(model, cam, cfg),
+                   label=f"project_gaussians {label}"),
+        plain_ms=cuda_ms(lambda: projection.project_gaussians_torch(
+            model, cam, cfg), label=f"project_gaussians {label} plain",
+            enforce=False),
+        **bound(model.num_gaussians * (44 + 12 * kc + 48), 0))
 
 
 def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int, cuda_ms):
@@ -2983,6 +3015,26 @@ def main() -> int:
                                strict_termination=False)
         cam_app = Camera.orbit(app_scene.bb_min, app_scene.bb_max, fov,
                                aspect, device=dev)
+        # Kernel G at the capture's width (2^20 gaussians at SH 3) and on
+        # the app scene (37,941 at SH 0).
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model_sh3 = GaussianModel.random(N_1M, generator=gen, device=dev,
+                                         sh_degree=3)
+        g_rows = [project_row("2^20 SH 3", model_sh3, cam_1m(0.0), cfg_1m,
+                              cuda_ms),
+                  project_row("37.9k SH 0", app_scene.model, cam_app,
+                              cfg_app, cuda_ms)]
+        del model_sh3
+        for row in g_rows:
+            say("project_gaussians", **row,
+                share=row["bound_ms"] / row["ms"])
+        results["project_gaussians"] = result(
+            "project_gaussians", max_abs_err=max(
+                v for row in g_rows for k, v in row.items()
+                if k.endswith("_max_abs_err")),
+            **{k: g_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "bytes", "operations",
+                                         "radius_differ")})
         binned_app = binning.bin_splats(
             project_gaussians(app_scene.model, cam_app, cfg_app), cfg_app)
         binned_1m = binning.bin_splats(splats_1m, cfg_1m)

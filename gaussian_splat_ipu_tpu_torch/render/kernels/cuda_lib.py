@@ -64,6 +64,12 @@ _SIGNATURES = {
     # bg0, bg1, bg2, dfeat, stream
     "gsplat_rasterize_bwd": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _F, _F, _F, _F, _F, _P, _P),
+    # means, log_scales, quats, opacities, sh, n, sh_row, degree, view,
+    # proj, env_rot, width, height, lowpass, alpha_min, inv_alpha_min,
+    # q_cap, flags, xy, depth, conic, color, opacity, radius, stream
+    "gsplat_project_gaussians": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                 _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P,
+                                 _P, _P, _P),
     # log, state, capacity, tag, stream
     "gsplat_stamp": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     # words (page-locked host memory), timeout_ns, stream

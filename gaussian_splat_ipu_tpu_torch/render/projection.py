@@ -1,18 +1,31 @@
 """Projection stage: gaussian parameters -> screen-space splats (torch port
 of gaussian_splat_ipu_tpu/render/projection.py): view/clip transforms,
 viewport mapping, EWA cov2D, conic, alpha-aware extents, SH colour and the
-frustum cull."""
+frustum cull.
+
+Two implementations of one algorithm, chosen by what the call shows: kernel
+G (render/kernels/project.py) in one pass when the model's five tensors and
+the camera's are f32 CUDA tensors, no xy_probe is given and no gradient is
+recorded (grad mode off, or no field of the model requires grad); else the
+plain version, project_gaussians_torch, which stays the CPU path and the
+autograd path. `plain_calls` counts the CUDA calls that took the plain
+version, by reason ("xy_probe", "grad", "dtype"); G's launches count in
+cuda_lib.launches["project_gaussians"]."""
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
 
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
-from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS, GaussianModel
 from gaussian_splat_ipu_tpu_torch.ops import covariance, sh, transforms
+from gaussian_splat_ipu_tpu_torch.render.kernels import project as kernel
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
+
+plain_calls: collections.Counter = collections.Counter()
 
 
 class ProjectedSplats(NamedTuple):
@@ -26,12 +39,49 @@ class ProjectedSplats(NamedTuple):
     radius: torch.Tensor    # (N, 2) footprint half-extents; (0, 0) = culled
 
 
+def plain_reason(model: GaussianModel, camera: Camera,
+                 xy_probe: torch.Tensor | None) -> str | None:
+    """Why a call takes the plain version rather than kernel G, or None:
+    the module docstring's rule, the device aside."""
+    if xy_probe is not None:
+        return "xy_probe"
+    fields = [getattr(model, k) for k in FIELDS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in fields):
+        return "grad"
+    if any(t.dtype != torch.float32 for t in fields + [
+            camera.view, camera.proj, camera.env_rot]):
+        return "dtype"
+    return None
+
+
 def project_gaussians(model: GaussianModel, camera: Camera,
                       cfg: RasterConfig,
                       xy_probe: torch.Tensor | None = None
                       ) -> ProjectedSplats:
     """xy_probe: optional (N, 2) zeros added to the screen position, whose
-    gradient is the screen-space positional gradient densification uses."""
+    gradient is the screen-space positional gradient densification uses.
+    On CUDA tensors kernel G computes the splats unless plain_reason gives
+    a reason not to (module docstring)."""
+    if model.means.is_cuda:
+        reason = plain_reason(model, camera, xy_probe)
+        if reason is None:
+            degree = model.sh_degree
+            if cfg.active_sh_degree >= 0:
+                degree = min(degree, cfg.active_sh_degree)
+            return ProjectedSplats(*kernel.project(
+                *(getattr(model, k).contiguous() for k in FIELDS),
+                camera.view.contiguous(), camera.proj.contiguous(),
+                camera.env_rot.contiguous(), cfg, degree))
+        plain_calls[reason] += 1
+    return project_gaussians_torch(model, camera, cfg, xy_probe)
+
+
+def project_gaussians_torch(model: GaussianModel, camera: Camera,
+                            cfg: RasterConfig,
+                            xy_probe: torch.Tensor | None = None
+                            ) -> ProjectedSplats:
+    """The plain version: project_gaussians in PyTorch ops, on any device,
+    differentiable."""
     means = model.means.to(torch.float32)
 
     view_h = transforms.transform_points(camera.view, means)      # (N, 4)

@@ -38,8 +38,11 @@ device time drifts while nothing synchronises), and the stamp kernel's
 device ms per item. Anchors are also taken where the window starts and
 around the traced stretch. Every line holds the median host ms of the
 harness's own spans in the window (enqueue, to_host, retire), recording
-on or off. One JSON line per run, then a summary per cell (the e2e
-medians off and on), then the card's name and power limit.
+on or off, and the run's launches of kernel G (projection) and its CUDA
+calls of the plain projection by reason (render/projection.py; in a
+captured program these move at warm-up and capture, not per replay). One
+JSON line per run, then a summary per cell (the e2e medians off and on),
+then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -228,6 +231,8 @@ def run_cell(cell, seed, seconds, trace, record, device):
     line (module docstring)."""
     import torch
 
+    from gaussian_splat_ipu_tpu_torch.render import projection
+    from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
     from gaussian_splat_ipu_tpu_torch.utils import profiling
     from splatbench import harness
     from splatbench import run as sb_run
@@ -251,6 +256,8 @@ def run_cell(cell, seed, seconds, trace, record, device):
         return orig(events, marks, t_begin, t_end)
 
     profiling.reset_tracepoints()
+    cuda_lib.launches.clear()
+    projection.plain_calls.clear()
     rec = profiling.start(device) if record else None
     harness.read_profile = read_profile
     real_spans = harness.Spans
@@ -263,7 +270,9 @@ def run_cell(cell, seed, seconds, trace, record, device):
                    e2e={k: v["value"] for k, v in res["metrics"].items()},
                    per_second=res["info"].get("per_second"),
                    harness_ms={k: round(statistics.median(v) * 1e3, 4)
-                               for k, v in spans.times.items() if v})
+                               for k, v in spans.times.items() if v},
+                   project_launches=cuda_lib.launches["project_gaussians"],
+                   project_plain_calls=dict(projection.plain_calls))
         if record:
             if captured:
                 captured["items"] = traffic["profiled_frames"] \

@@ -447,6 +447,12 @@ def test_stamps_on_the_card_cover_frames_and_steps_on_one_clock():
         return (model, cam.view.to(dev), cam.proj.to(dev),
                 cam.env_rot.to(dev))
 
+    # The cameras on the device before the frames run, as the train step's
+    # below: a copy from pageable memory synchronizes the stream, and
+    # inside the loop it would leave the device waiting within each
+    # frame's span for the host's next launch.
+    frames = [frame_args(cam) for cam in cams]
+
     eng = RenderEngine(RuntimeConfig(device="cuda"))
     cuda_lib.library()
     cuda_lib.launches.clear()
@@ -464,13 +470,13 @@ def test_stamps_on_the_card_cover_frames_and_steps_on_one_clock():
         assert rec.counters["captures.project"] == 1
         rec.collect()
         rec.clear()
-        for cam in cams:
-            eng.run("project", *frame_args(cam))
+        for args in frames:
+            eng.run("project", *args)
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for cam in cams[:12]:
-                eng.run("project", *frame_args(cam))
+            for args in frames[:12]:
+                eng.run("project", *args)
             torch.cuda.synchronize()
         rec.anchor()
         offsets = _stamp_offsets(rec, prof)

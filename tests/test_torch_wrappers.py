@@ -175,7 +175,9 @@ def test_kernels_match_plain_versions_on_the_card():
         raster_kernels_match(binned, CFG)
         raster_kernels_match(binned3, cfg3)
         torch.cuda.synchronize()
+    # splats_on projects once more, through kernel G.
     assert cuda_lib.launches == {"coverage_masks": 2, "stream_expand": 1,
+                                 "project_gaussians": 1,
                                  "row_cumsum_exclusive":
                                  2 + len(SCAN_CASES),
                                  "stream_expand_seg": 1, "expand_pairs": 1,
