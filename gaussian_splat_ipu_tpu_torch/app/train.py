@@ -29,8 +29,9 @@ Training extras, with the reference's defaults and composition rules:
                      threshold scaled by the measured L1 / SSIM mix when
                      --ssim-weight > 0, --auto-grow (double the buffer
                      above 90% alive). Steps run in whole epochs; after each
-                     event every training view's pair demand is probed, and
-                     densification stops above 0.8x --pair-capacity.
+                     event every training view's pair demand is probed
+                     (densify.pair_demand_guard), and densification stops
+                     above 0.8x --pair-capacity.
   --pose-opt LR, --exposure-opt LR
                      per-view pose deltas and exposure maps optimised with
                      the scene (train/aux_opt.py); ignored, with a warning,
@@ -140,7 +141,6 @@ _RENDER = "render"       # the engine's render program
 _PROBE = "probe"         # the sharded pair-demand probe (--densify)
 _VB_STEP = "view_batch_step"  # the --view-batch step program
 _ORDER_SEED = 0xC0FFEE   # the reference's visit-order generator
-_PROBE_SHARE = 0.8       # stop densifying above this share of the capacity
 _GROW_SHARE = 0.9        # --auto-grow above this share of the slots alive
 _VB_KEEP = 4             # view-batch steps whose counters stay unread
 
@@ -283,7 +283,8 @@ def run(argv=None) -> dict:
     the SH degree it renders, -1 for every band, slots, capture seconds,
     the allocator's reserved bytes after it); with --densify each event
     (step, alive count, pair demand, overflow and exchange overflow of the
-    probe, event ms) and the final alive count; the shard count, the view
+    probe, event ms, slots, the event's counts by densify.COUNT_NAMES) and
+    the final alive count; the shard count, the view
     batch and its summed drop counters, the process count;
     the learned pose deltas and exposure maps; the overflow and truncation
     of the target renders (--input) or of the initial model's render of
@@ -822,6 +823,7 @@ def _run(args, engine, multiproc: bool) -> dict:
 
     densify_open = True
     events = []
+    counts = densify.new_counts(device) if args.densify else None
     tail_order = None
     t0 = time.perf_counter()
     while i < args.steps:
@@ -861,8 +863,8 @@ def _run(args, engine, multiproc: bool) -> dict:
                           torch.cuda.Event(enable_timing=True))
                     ev[0].record()
                 state, dstate = (multihost if pmesh is not None
-                                 else densify).densify_and_prune(state,
-                                                                 dstate, c)
+                                 else densify).densify_and_prune(
+                                     state, dstate, c, counts)
                 if on_cuda:
                     ev[1].record()
                     ev[1].synchronize()
@@ -873,24 +875,24 @@ def _run(args, engine, multiproc: bool) -> dict:
                 # pairs corrupt gradients, so stop growing first. Sharded,
                 # the global demand against the summed per-shard budgets
                 # (counted overflow catches a single hot shard).
-                probe = render_views(engine, state.params, cameras,
-                                     _PROBE if use_dist else _RENDER)
-                demand = max(int(o.count + o.overflow) for o in probe)
-                ovf = max(int(o.overflow) for o in probe)
-                xovf = max(int(o.exchange_overflow) for o in probe)
-                del probe
+                guard = densify.pair_demand_guard(
+                    engine, state.params, cameras, probe_capacity,
+                    _PROBE if use_dist else _RENDER, counts)
+                demand, ovf = guard.demand, guard.overflow
                 if ovf > 0:
                     log.warning("pair overflow (%d dropped): raise "
                                 "--pair-capacity", ovf)
-                if demand > int(_PROBE_SHARE * probe_capacity):
+                if guard.closes:
                     densify_open = False
                     log.info("pair demand %d near capacity %d: no further "
                              "densification", demand, probe_capacity)
                 alive_now = alive_count()
                 slots = slot_count()
                 events.append(dict(step=i, alive=alive_now, demand=demand,
-                                   overflow=ovf, exchange_overflow=xovf,
-                                   event_ms=event_ms, slots=slots))
+                                   overflow=ovf,
+                                   exchange_overflow=guard.exchange_overflow,
+                                   event_ms=event_ms, slots=slots,
+                                   counts=guard.counts))
                 if (args.auto_grow and densify_open
                         and alive_now > int(_GROW_SHARE * slots)):
                     if use_dist:
@@ -904,7 +906,9 @@ def _run(args, engine, multiproc: bool) -> dict:
                     log.info("slot buffer grown to %d (programs registered "
                              "again)", 2 * slots)
                 log.info("densify at step %d: %d gaussians alive (%d "
-                         "pairs)", i, alive_now, demand)
+                         "pairs); %s", i, alive_now, demand,
+                         ", ".join(f"{k} {v}"
+                                   for k, v in guard.counts.items()))
             # Reset only while densification runs (pruning must harvest
             # it) and never near the end: the model needs a few hundred
             # steps to recover.

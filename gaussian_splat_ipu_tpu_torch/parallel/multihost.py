@@ -316,16 +316,18 @@ def keep_state(state: trainer.TrainState, dstate=None):
 
 def densify_and_prune(state: trainer.TrainState,
                       dstate: densify.DensifyState,
-                      cfg: densify.DensifyConfig = densify.DensifyConfig()):
+                      cfg: densify.DensifyConfig = densify.DensifyConfig(),
+                      counts=None):
     """One density event on a process mesh, where each process holds a
     slice of the slot buffer: every slot-indexed tensor is all-gathered,
     densify.densify_and_prune runs on the whole buffer on every process
     with the same key (so the same split noise), and this process's rows
     are written back into its tensors in place (a registered program
-    keeps training them). Returns (state, dstate with the advanced key).
-    The opacity reset is elementwise and needs no gather."""
+    keeps training them). The whole buffer's counts go into `counts` when
+    given. Returns (state, dstate with the advanced key). The opacity
+    reset is elementwise and needs no gather."""
     whole, wd = gather_state(state, dstate)
-    whole, wd = densify.densify_and_prune(whole, wd, cfg)
+    whole, wd = densify.densify_and_prune(whole, wd, cfg, counts)
     with torch.no_grad():
         for mine, w in zip(_slots(state, dstate), _slots(whole, wd)):
             mine.copy_(keep_rows(w))

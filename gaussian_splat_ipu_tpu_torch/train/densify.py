@@ -20,12 +20,25 @@ CUDA graph serve a whole run, as one XLA executable does there:
   of the keep mask, birth b placed in free slot b while b < min(births,
   free); the lowest-priority births are dropped when the buffer is full.
 - Adam moments of rows that changed meaning are zeroed in place.
+- The event writes its counts (COUNT_NAMES) into a small int64 tensor on
+  the device; nothing is read back until the pair-demand guard
+  (pair_demand_guard), which renders every training view after an event
+  and reads its demand and the counts in one read-back.
 
 A registered step and the eager events share tensors: the event and the
 opacity reset run between replays and write into the very tensors the
 graph captured (the five parameters, every label's moments, grad_sum,
 vis_count, alive) with copy_ / masked_fill_, never rebinding them. The
 event reads nothing back to the host.
+
+Spans and counters (utils/profiling.py, while spans are recorded):
+"densify.event" (host and device) around densify_and_prune,
+"densify.guard" (host) around the guard's renders and read-back,
+"densify.reset" (host and device) around reset_opacity; the counters
+densify.events (events), densify.births, densify.dropped and
+densify.pruned (summed over the events the guard read), densify.alive and
+densify.pair_demand (the latest guard's). Off, each costs one attribute
+check.
 
 Split noise: the reference draws two normal (C, 3) arrays from
 jax.random.split(key, 3). The port keeps the key as the same (2,) uint32
@@ -52,6 +65,7 @@ from gaussian_splat_ipu_tpu_torch.ops.transforms import quat_to_rotmat
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
 from gaussian_splat_ipu_tpu_torch.train import depth, losses, trainer
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig)
 
@@ -60,6 +74,15 @@ from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
 _DEAD_OPACITY = -30.0
 _DEAD_LOG_SCALE = -30.0
 STEP_PROGRAM = "densify_step"
+# The event's counts, in the order of its counts tensor: alive slots above
+# the gradient threshold, splits and clones among the kept ones, births
+# placed in free slots and dropped for want of one, alive slots pruned,
+# and slots alive after the event.
+COUNT_NAMES = ("candidates", "splits", "clones", "placed", "dropped",
+               "pruned", "alive")
+# Densification stops once a training view's pair demand passes this share
+# of the pair capacity (dropped pairs corrupt gradients).
+GUARD_SHARE = 0.8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,14 +339,20 @@ def split_noise(dstate: DensifyState, capacity: int, device):
     return eps[0], eps[1], key
 
 
+def new_counts(device) -> torch.Tensor:
+    """A zeroed counts tensor for densify_and_prune (COUNT_NAMES)."""
+    return torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=device)
+
+
 @torch.no_grad()
 def densify_and_prune_core(state: trainer.TrainState, dstate: DensifyState,
                            cfg: DensifyConfig, eps_a: torch.Tensor,
-                           eps_b: torch.Tensor) -> None:
+                           eps_b: torch.Tensor) -> torch.Tensor:
     """One density-control event with the given split noise, in place:
     capacity never changes, children land in free slots, the
     lowest-priority births drop when the buffer is full. Every new value
-    is computed from the old ones before any is written."""
+    is computed from the old ones before any is written. Returns the
+    event's (7,) int64 counts (COUNT_NAMES) on the device."""
     params = state.params
     capacity = params.num_gaussians
     dev = params.device
@@ -368,8 +397,8 @@ def densify_and_prune_core(state: trainer.TrainState, dstate: DensifyState,
     free_slots = torch.argsort(keep.to(torch.uint8), stable=True)
     n_birth = torch.sum(birth)
     n_free = capacity - torch.sum(keep)
-    placed = (torch.arange(capacity, device=dev)
-              < torch.minimum(n_birth, n_free))
+    n_placed = torch.minimum(n_birth, n_free)
+    placed = torch.arange(capacity, device=dev) < n_placed
 
     def place(x, values):
         m = placed.view((-1,) + (1,) * (x.ndim - 1))
@@ -390,6 +419,9 @@ def densify_and_prune_core(state: trainer.TrainState, dstate: DensifyState,
     # Moments of rows that changed meaning: split parents, every birth
     # slot, every dead slot.
     touched = place(is_split | dead, ones)
+    out = torch.stack([torch.sum(candidate), torch.sum(is_split),
+                       torch.sum(is_clone), n_placed, n_birth - n_placed,
+                       torch.sum(alive & ~keep), torch.sum(alive_new)])
 
     for k in FIELDS:
         getattr(params, k).copy_(new[k])
@@ -397,17 +429,76 @@ def densify_and_prune_core(state: trainer.TrainState, dstate: DensifyState,
     dstate.grad_sum.zero_()
     dstate.vis_count.zero_()
     alive.copy_(alive_new)
+    return out
 
 
 def densify_and_prune(state: trainer.TrainState, dstate: DensifyState,
-                      cfg: DensifyConfig = DensifyConfig()):
+                      cfg: DensifyConfig = DensifyConfig(),
+                      counts: Optional[torch.Tensor] = None):
     """One density-control event (densify_and_prune_core with noise drawn
-    from the key). The state's tensors are written in place; returns
-    (state, dstate with the advanced key)."""
-    eps_a, eps_b, key = split_noise(dstate, state.params.num_gaussians,
-                                    state.params.device)
-    densify_and_prune_core(state, dstate, cfg, eps_a, eps_b)
+    from the key), the span "densify.event". The state's tensors are
+    written in place, and the event's counts into `counts` when given
+    (new_counts; nothing is read back); returns (state, dstate with the
+    advanced key)."""
+    dev = state.params.device
+    rec = profiling.active
+    if rec is not None:
+        rec.counters["densify.events"] += 1
+    with profiling.span("densify.event", dev):
+        eps_a, eps_b, key = split_noise(dstate, state.params.num_gaussians,
+                                        dev)
+        out = densify_and_prune_core(state, dstate, cfg, eps_a, eps_b)
+        if counts is not None:
+            counts.copy_(out)
     return state, dstate._replace(key=key)
+
+
+class Guard(NamedTuple):
+    """What the pair-demand guard read after an event."""
+
+    demand: int             # max over the views of live + dropped pairs
+    overflow: int           # max over the views of pairs dropped
+    exchange_overflow: int  # max over the views of exchange drops
+    closes: bool            # demand > GUARD_SHARE x the pair capacity
+    counts: Optional[dict]  # the event's counts by COUNT_NAMES, or None
+
+
+def pair_demand_guard(engine: RenderEngine, params: GaussianModel, cameras,
+                      pair_capacity: int, program: str = "render",
+                      counts: Optional[torch.Tensor] = None) -> Guard:
+    """The guard after a density event: one run of the registered render
+    program `program` (fn(model, view, proj, env_rot) -> an output with
+    count, overflow and exchange_overflow) per camera, reduced on the
+    device and read back once, with the event's `counts` (densify_and_prune)
+    when given. The guard closes densification when the worst view's
+    demand (live + dropped pairs) passes GUARD_SHARE of `pair_capacity`.
+    The span "densify.guard"; while spans are recorded the counters
+    densify.births, .dropped, .pruned (summed), .alive and .pair_demand
+    (the latest)."""
+    with profiling.span("densify.guard"):
+        per_view = []
+        for c in cameras:
+            o = engine.run(program, params, c.view, c.proj, c.env_rot)
+            per_view.append(torch.stack([o.count + o.overflow, o.overflow,
+                                         o.exchange_overflow]).to(
+                                             torch.int64))
+        read = torch.amax(torch.stack(per_view), dim=0)
+        if counts is not None:
+            read = torch.cat([read, counts.to(read.device)])
+        values = read.tolist()
+    demand, overflow, xovf = values[:3]
+    got = dict(zip(COUNT_NAMES, values[3:])) if counts is not None else None
+    rec = profiling.active
+    if rec is not None:
+        c = rec.counters
+        c["densify.pair_demand"] = demand
+        if got is not None:
+            c["densify.births"] += got["placed"]
+            c["densify.dropped"] += got["dropped"]
+            c["densify.pruned"] += got["pruned"]
+            c["densify.alive"] = got["alive"]
+    return Guard(demand, overflow, xovf,
+                 demand > int(GUARD_SHARE * pair_capacity), got)
 
 
 @torch.no_grad()
@@ -422,12 +513,13 @@ def reset_opacity(state: trainer.TrainState, dstate: DensifyState,
     ceiling = float(torch.log(torch.tensor(p / (1.0 - p),
                                            dtype=torch.float32)))
     op = state.params.opacities
-    op.copy_(torch.where(dstate.alive, torch.clamp_max(op, ceiling), op))
-    c = op.shape[0]
-    for st in state.opt_state.adam.values():
-        for m in (st.mu, st.nu):
-            if m.ndim == 1 and m.shape[0] == c:
-                m.zero_()
+    with profiling.span("densify.reset", op.device):
+        op.copy_(torch.where(dstate.alive, torch.clamp_max(op, ceiling), op))
+        c = op.shape[0]
+        for st in state.opt_state.adam.values():
+            for m in (st.mu, st.nu):
+                if m.ndim == 1 and m.shape[0] == c:
+                    m.zero_()
     return state
 
 
