@@ -380,6 +380,9 @@ KERNEL_SOURCES = {
     "expand_pairs": ("expand_pairs.cu", "render/kernels/expand.py:121"),
     "project_gaussians": ("project.cu", "render/projection.py (no Pallas "
                           "kernel: XLA fuses the projection)"),
+    "project_gaussians_bwd": ("project_bwd.cu", "render/projection.py (no "
+                              "Pallas kernel: XLA differentiates the "
+                              "projection)"),
 }
 
 
@@ -1626,6 +1629,62 @@ def project_row(label: str, model, cam, cfg, cuda_ms) -> dict:
             model, cam, cfg), label=f"project_gaussians {label} plain",
             enforce=False),
         **bound(model.num_gaussians * (44 + 12 * kc + 48), 0))
+
+
+def project_bwd_row(label: str, model, cam, cfg, cuda_ms) -> dict:
+    """Kernel G-bwd on one frame, every gaussian given normal cotangents of
+    its five outputs (no probe, as in a fit step), against the plain
+    projection's f32 autograd, both against the float64 gradient
+    (project.compare_bwd; fails outside its bounds); the device ms of
+    G-bwd and of the plain version's autograd backward (its graph kept),
+    and G-bwd's byte bound (each parameter and cotangent byte it needs
+    read once, each gradient byte written once). Runs with autograd on
+    whatever mode the caller is in, on copies of the model and camera."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.render import projection
+    from gaussian_splat_ipu_tpu_torch.render.kernels import project
+    degree = (model.sh_degree if cfg.active_sh_degree < 0
+              else min(model.sh_degree, cfg.active_sh_degree))
+    with torch.inference_mode(False), torch.enable_grad():
+        trainable = model.trainable()
+        cam = Camera(cam.view.clone(), cam.proj.clone(), cam.env_rot.clone())
+        params = list(trainable.parameters())
+        outs = list(projection.project_gaussians_torch(trainable, cam,
+                                                       cfg)[:5])
+        gen = torch.Generator(device=model.device).manual_seed(SEED)
+        cots = [torch.randn(o.shape, generator=gen, device=o.device)
+                for o in outs]
+        args = [p.detach() for p in params] + [cam.view, cam.proj,
+                                               cam.env_rot]
+        got = project.project_bwd(*args, cfg, degree, cots)
+        plain = torch.autograd.grad(outs, params, cots, retain_graph=True)
+        m64 = GaussianModel(*(p.detach().double() for p in params),
+                            requires_grad=True, dtype=torch.float64)
+        c64 = Camera(cam.view.double(), cam.proj.double())
+        c64.env_rot = cam.env_rot.double()
+        exact = torch.autograd.grad(
+            list(projection.project_gaussians_torch(m64, c64, cfg)[:5]),
+            list(m64.parameters()), [c.double() for c in cots])
+        del m64
+        live = torch.ones(model.num_gaussians, dtype=torch.bool,
+                          device=model.device)
+        res = project.compare_bwd(got[:5], plain, exact, live)
+        del exact, got, plain
+        bad = project.compare_bwd_failures(res)
+        if bad:
+            fail(f"project_gaussians_bwd {label}: {bad}")
+        kc, k = (degree + 1) ** 2, model.sh.shape[1]
+        return dict(
+            shape=label, **res,
+            ms=cuda_ms(lambda: project.project_bwd(*args, cfg, degree, cots),
+                       label=f"project_gaussians_bwd {label}"),
+            plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                outs, params, cots, retain_graph=True),
+                label=f"project_gaussians_bwd {label} plain", enforce=False),
+            **bound(model.num_gaussians * (44 + 12 * kc + 40 + 44 + 12 * k),
+                    0))
 
 
 def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int, cuda_ms):
@@ -3024,6 +3083,10 @@ def main() -> int:
                               cuda_ms),
                   project_row("37.9k SH 0", app_scene.model, cam_app,
                               cfg_app, cuda_ms)]
+        bwd_rows = [project_bwd_row("2^20 SH 3", model_sh3, cam_1m(0.0),
+                                    cfg_1m, cuda_ms),
+                    project_bwd_row("37.9k SH 0", app_scene.model, cam_app,
+                                    cfg_app, cuda_ms)]
         del model_sh3
         for row in g_rows:
             say("project_gaussians", **row,
@@ -3035,6 +3098,16 @@ def main() -> int:
             **{k: g_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "bytes", "operations",
                                          "radius_differ")})
+        for row in bwd_rows:
+            say("project_gaussians_bwd", **row,
+                share=row["bound_ms"] / row["ms"])
+        results["project_gaussians_bwd"] = result(
+            "project_gaussians_bwd", max_ratio=max(
+                v for row in bwd_rows for k, v in row.items()
+                if k.endswith("_ratio")),
+            **{k: bwd_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "bytes",
+                                           "operations")})
         binned_app = binning.bin_splats(
             project_gaussians(app_scene.model, cam_app, cfg_app), cfg_app)
         binned_1m = binning.bin_splats(splats_1m, cfg_1m)
@@ -3287,7 +3360,8 @@ def main() -> int:
     (step_ms, losses_1m), launches["train_1m"] = counted(cuda_lib, steps_1m)
     need_launches("1M train", launches["train_1m"],
                   ("coverage_masks", "stream_expand", "rasterize_strict_aux",
-                   "rasterize_bwd"), TRAIN_STEPS_1M)
+                   "rasterize_bwd", "project_gaussians",
+                   "project_gaussians_bwd"), TRAIN_STEPS_1M)
     params = list(state.params.parameters())
     qnorm = torch.linalg.vector_norm(state.params.quats.detach(), dim=-1)
     with torch.inference_mode():
@@ -3536,10 +3610,11 @@ def main() -> int:
             ("1M", model_1m, cfg_train_1m, tc_1m, [cam0] * 3,
              [t.clone() for t in tgt_1m],
              ("coverage_masks", "stream_expand", "rasterize_strict_aux",
-              "rasterize_bwd")),
+              "rasterize_bwd", "project_gaussians", "project_gaussians_bwd")),
             ("app 640x360", init_app, cfg_tapp, trainer.TrainConfig(
                 scene_extent=extent), cams_t, [t.clone() for t in tgt_t],
-             ("stream_expand", "rasterize_strict_aux", "rasterize_bwd"))):
+             ("stream_expand", "rasterize_strict_aux", "rasterize_bwd",
+              "project_gaussians", "project_gaussians_bwd"))):
         facts, launches[f"train step {label}"] = step_check(
             label, model, cfg, tc, cams, tgts, timer)
         step_facts[label] = facts

@@ -1,22 +1,24 @@
 """Gaussian covariance math: 3D covariance, EWA 2D projection, conics.
 
 Torch port of gaussian_splat_ipu_tpu/ops/covariance.py: component-wise
-expressions over (N,) tensors in f32, with the reference's 1.3*tan_fov
-clamp, +0.3 low-pass, alpha-aware extents and conic validity kept exactly.
+expressions over (N,) tensors in f32 (f64 for f64 inputs), with the
+reference's 1.3*tan_fov clamp, +0.3 low-pass, alpha-aware extents and
+conic validity kept exactly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gaussian_splat_ipu_tpu_torch.ops.transforms import quat_to_rotmat
+from gaussian_splat_ipu_tpu_torch.ops.transforms import (at_least_f32,
+                                                         quat_to_rotmat)
 
 
 def covariance_3d(log_scales: torch.Tensor, quats: torch.Tensor):
     """(N,3) log-scales + (N,4) quats -> the six upper-triangle components
     (xx, xy, xz, yy, yz, zz) of Sigma = R S S^T R^T."""
-    s = torch.exp(log_scales.to(torch.float32))
-    r = quat_to_rotmat(quats.to(torch.float32))
+    s = torch.exp(at_least_f32(log_scales))
+    r = quat_to_rotmat(at_least_f32(quats))
     m = r * s[..., None, :]
     xx = torch.sum(m[..., 0, :] * m[..., 0, :], -1)
     xy = torch.sum(m[..., 0, :] * m[..., 1, :], -1)

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from gaussian_splat_ipu_tpu_torch.ops.transforms import at_least_f32
+
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
 SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -21,7 +23,7 @@ def num_sh_coeffs(degree: int) -> int:
 def dc_to_rgb(f_dc: torch.Tensor) -> torch.Tensor:
     """(N, 3) DC coefficients -> RGB = SH_C0 * f_dc + 0.5, clamped at 0
     (reference src/main/splat.cpp:136-148)."""
-    return torch.clamp_min(SH_C0 * f_dc.to(torch.float32) + 0.5, 0.0)
+    return torch.clamp_min(SH_C0 * at_least_f32(f_dc) + 0.5, 0.0)
 
 
 def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int

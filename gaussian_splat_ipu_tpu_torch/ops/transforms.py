@@ -22,6 +22,12 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=F32, device=device)
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in f64 where it is f64 (the gradient tests run the
+    plain projection in f64)."""
+    return t.to(torch.promote_types(t.dtype, F32))
+
+
 def look_at(eye, center, up, device=None) -> torch.Tensor:
     """Right-handed lookAt view matrix (glm::lookAt semantics)."""
     eye, center, up = (_t(v, device) for v in (eye, center, up))
@@ -93,7 +99,8 @@ def radians(degrees, device=None) -> torch.Tensor:
 
 
 def _rotation(radians_, device, axis: str) -> torch.Tensor:
-    a = _t(radians_, device)
+    a = (at_least_f32(radians_) if torch.is_tensor(radians_)
+         else _t(radians_, device))
     c, s = torch.cos(a), torch.sin(a)
     o, z = torch.ones_like(c), torch.zeros_like(c)
     if axis == "x":
@@ -121,11 +128,12 @@ def translate(v, device=None) -> torch.Tensor:
 def transform_points(matrix: torch.Tensor, points: torch.Tensor
                      ) -> torch.Tensor:
     """Batched 4x4 transform of (N, 3|4) points, in full f32 (the
-    reference asks XLA for HIGHEST precision; the port turns TF32 off)."""
-    points = points.to(F32)
+    reference asks XLA for HIGHEST precision; the port turns TF32 off), or
+    f64 for f64 points."""
+    points = at_least_f32(points)
     if points.shape[-1] == 3:
         points = torch.cat(
-            [points, torch.ones(points.shape[:-1] + (1,), dtype=F32,
+            [points, torch.ones(points.shape[:-1] + (1,), dtype=points.dtype,
                                 device=points.device)], dim=-1)
     return points @ matrix.T
 

@@ -70,6 +70,15 @@ _SIGNATURES = {
     "gsplat_project_gaussians": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                                  _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P,
                                  _P, _P, _P),
+    # means, log_scales, quats, opacities, sh, n, sh_row, degree, view,
+    # proj, env_rot, width, height, lowpass, flags, then each of the
+    # cotangents of xy, depth, conic, color and opacity with its row stride,
+    # then d_means, d_log_scales, d_quats, d_opacities, d_sh, d_probe,
+    # stream
+    "gsplat_project_gaussians_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                     _P, _F, _F, _F, _I, _P, _I, _P, _I, _P,
+                                     _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                                     _P, _P),
     # log, state, capacity, tag, stream
     "gsplat_stamp": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     # words (page-locked host memory), timeout_ns, stream

@@ -3,14 +3,16 @@ of gaussian_splat_ipu_tpu/render/projection.py): view/clip transforms,
 viewport mapping, EWA cov2D, conic, alpha-aware extents, SH colour and the
 frustum cull.
 
-Two implementations of one algorithm, chosen by what the call shows: kernel
-G (render/kernels/project.py) in one pass when the model's five tensors and
-the camera's are f32 CUDA tensors, no xy_probe is given and no gradient is
-recorded (grad mode off, or no field of the model requires grad); else the
-plain version, project_gaussians_torch, which stays the CPU path and the
-autograd path. `plain_calls` counts the CUDA calls that took the plain
-version, by reason ("xy_probe", "grad", "dtype"); G's launches count in
-cuda_lib.launches["project_gaussians"]."""
+Two implementations of one algorithm, chosen by what the call shows: on
+CUDA, kernel G (render/kernels/project.py) in one pass when the model's
+five tensors, the camera's and any xy_probe are f32 and no gradient is
+recorded for the camera; where a gradient is recorded for the model or
+the probe, G runs inside an autograd Function whose backward is kernel
+G-bwd. Otherwise the plain version, project_gaussians_torch, which stays
+the CPU path. `plain_calls` counts the CUDA calls that took the plain
+version, by reason ("camera_grad", "dtype"); G's launches count in
+cuda_lib.launches["project_gaussians"], G-bwd's in
+cuda_lib.launches["project_gaussians_bwd"]."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import collections
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS, GaussianModel
@@ -41,17 +44,57 @@ class ProjectedSplats(NamedTuple):
 
 def plain_reason(model: GaussianModel, camera: Camera,
                  xy_probe: torch.Tensor | None) -> str | None:
-    """Why a call takes the plain version rather than kernel G, or None:
-    the module docstring's rule, the device aside."""
-    if xy_probe is not None:
-        return "xy_probe"
-    fields = [getattr(model, k) for k in FIELDS]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in fields):
-        return "grad"
-    if any(t.dtype != torch.float32 for t in fields + [
-            camera.view, camera.proj, camera.env_rot]):
+    """Why a call takes the plain version rather than kernels G and G-bwd,
+    or None: the module docstring's rule, the device aside."""
+    cam = [camera.view, camera.proj, camera.env_rot]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in cam):
+        return "camera_grad"
+    probe = [] if xy_probe is None else [xy_probe]
+    if any(t.dtype != torch.float32
+           for t in [getattr(model, k) for k in FIELDS] + cam + probe):
         return "dtype"
     return None
+
+
+class _Project(torch.autograd.Function):
+    """G forward, G-bwd backward: the splats of `project_gaussians`,
+    differentiable in the model's five tensors and the xy probe (radius is
+    not differentiable, as in the plain version)."""
+
+    @staticmethod
+    def forward(ctx, cfg, degree, means, log_scales, quats, opacities, sh_,
+                view, proj, env_rot, xy_probe):
+        inputs = (means, log_scales, quats, opacities, sh_, view, proj,
+                  env_rot)
+        xy, *rest = kernel.project(*inputs, cfg, degree)
+        if xy_probe is not None:
+            xy.add_(xy_probe)
+        ctx.save_for_backward(*inputs)
+        ctx.cfg, ctx.degree = cfg, degree
+        ctx.mark_non_differentiable(rest[-1])
+        ctx.set_materialize_grads(False)
+        return (xy, *rest)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_xy, g_depth, g_conic, g_color, g_opacity, _):
+        need_fields = ctx.needs_input_grad[2:7]
+        need_probe = ctx.needs_input_grad[10]
+        grads, g_probe = (None,) * 5, None
+        if any(need_fields):
+            cots = tuple(None if g is None
+                         else g if g.dim() == 1 or g.stride(1) == 1
+                         else g.contiguous()
+                         for g in (g_xy, g_depth, g_conic, g_color,
+                                   g_opacity))
+            *grads, g_probe = kernel.project_bwd(
+                *ctx.saved_tensors, ctx.cfg, ctx.degree, cots,
+                probe=need_probe)
+            grads = [g if need else None
+                     for g, need in zip(grads, need_fields)]
+        elif need_probe and g_xy is not None:
+            g_probe = g_xy.clone()
+        return (None, None, *grads, None, None, None, g_probe)
 
 
 def project_gaussians(model: GaussianModel, camera: Camera,
@@ -60,18 +103,25 @@ def project_gaussians(model: GaussianModel, camera: Camera,
                       ) -> ProjectedSplats:
     """xy_probe: optional (N, 2) zeros added to the screen position, whose
     gradient is the screen-space positional gradient densification uses.
-    On CUDA tensors kernel G computes the splats unless plain_reason gives
-    a reason not to (module docstring)."""
+    On CUDA tensors kernel G computes the splats, and G-bwd their
+    gradients, unless plain_reason gives a reason not to (module
+    docstring)."""
     if model.means.is_cuda:
         reason = plain_reason(model, camera, xy_probe)
         if reason is None:
             degree = model.sh_degree
             if cfg.active_sh_degree >= 0:
                 degree = min(degree, cfg.active_sh_degree)
-            return ProjectedSplats(*kernel.project(
-                *(getattr(model, k).contiguous() for k in FIELDS),
-                camera.view.contiguous(), camera.proj.contiguous(),
-                camera.env_rot.contiguous(), cfg, degree))
+            fields = [getattr(model, k).contiguous() for k in FIELDS]
+            cam = [t.contiguous() for t in (camera.view, camera.proj,
+                                            camera.env_rot)]
+            probe = [] if xy_probe is None else [xy_probe.contiguous()]
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in fields + probe):
+                return ProjectedSplats(*_Project.apply(
+                    cfg, degree, *fields, *cam, *(probe or [None])))
+            xy, *rest = kernel.project(*fields, *cam, cfg, degree)
+            return ProjectedSplats(xy + probe[0] if probe else xy, *rest)
         plain_calls[reason] += 1
     return project_gaussians_torch(model, camera, cfg, xy_probe)
 
@@ -82,7 +132,7 @@ def project_gaussians_torch(model: GaussianModel, camera: Camera,
                             ) -> ProjectedSplats:
     """The plain version: project_gaussians in PyTorch ops, on any device,
     differentiable."""
-    means = model.means.to(torch.float32)
+    means = transforms.at_least_f32(model.means)
 
     view_h = transforms.transform_points(camera.view, means)      # (N, 4)
     clip = transforms.transform_points(camera.proj, view_h)        # (N, 4)
@@ -100,7 +150,7 @@ def project_gaussians_torch(model: GaussianModel, camera: Camera,
                                      tan_fovx, tan_fovy, cfg.lowpass)
     ca, cb, cc, conic_valid = covariance.conic(a, b, c)
 
-    opacity = model.opacities.to(torch.float32)
+    opacity = transforms.at_least_f32(model.opacities)
     if cfg.sigmoid_opacity:
         opacity = torch.sigmoid(opacity)
     if cfg.antialias:

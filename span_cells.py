@@ -17,7 +17,7 @@ From each recorded run, over the window's items (engine runs whose device
 span lies between the window's start, when the driver clears its span
 times, and the end of its last span before the traced stretch):
   - the median device ms per item of "project", "bin", "loss" +
-    "loss.bwd" and "adam";
+    "loss.bwd", "loss.bwd" alone and "adam";
   - stream idle %: 100 x (1 - the union of the device spans engine.run
     and to_host / retire over the window); gaps inside a graph are busy;
   - the share of each item's engine.run device span its direct children
@@ -38,9 +38,10 @@ device time drifts while nothing synchronises), and the stamp kernel's
 device ms per item. Anchors are also taken where the window starts and
 around the traced stretch. Every line holds the median host ms of the
 harness's own spans in the window (enqueue, to_host, retire), recording
-on or off, and the run's launches of kernel G (projection) and its CUDA
-calls of the plain projection by reason (render/projection.py; in a
-captured program these move at warm-up and capture, not per replay). One
+on or off, and the run's launches of kernel G (projection) and of its
+backward G-bwd beside its CUDA calls of the plain projection by reason
+(render/projection.py; in a captured program these move at warm-up and
+capture, not per replay). One
 JSON line per run, then a summary per cell (the e2e medians off and on),
 then the card's name and power limit.
 """
@@ -177,6 +178,7 @@ def _readings(profiling, rec, spans, kind, captured):
         project_ms=med(["project"]) if kind == "view" else None,
         binning_ms=med(["bin"]) if kind == "view" else None,
         loss_ms=med(["loss", "loss.bwd"]) if kind == "train" else None,
+        loss_bwd_ms=med(["loss.bwd"]) if kind == "train" else None,
         adam_ms=med(["adam"]) if kind == "train" else None,
         raster_ms=med(["raster"]), render_ms=med(["render"]),
         backward_ms=med(["backward"]), engine_run_ms=med(["engine.run"]),
@@ -272,6 +274,8 @@ def run_cell(cell, seed, seconds, trace, record, device):
                    harness_ms={k: round(statistics.median(v) * 1e3, 4)
                                for k, v in spans.times.items() if v},
                    project_launches=cuda_lib.launches["project_gaussians"],
+                   project_bwd_launches=cuda_lib.launches[
+                       "project_gaussians_bwd"],
                    project_plain_calls=dict(projection.plain_calls))
         if record:
             if captured:

@@ -1,9 +1,10 @@
 """Kernel G (render/kernels/project.py) and project_gaussians' choice of
-path: CPU calls, and CUDA calls that record a gradient, pass an xy_probe or
+path: CPU calls, and CUDA calls that record a gradient for the camera or
 hold another dtype, take the plain version; on a CUDA card (marked `cuda`,
 skipped without one) G equals the plain version within the kernel's
-tolerances (project.compare) and a rendered frame equals the plain path's.
-This file imports no JAX: its cuda tests run on the card with
+tolerances (project.compare), a rendered frame equals the plain path's,
+and calls that record a gradient for the model or an xy_probe run G and
+G-bwd. This file imports no JAX: its cuda tests run on the card with
 --noconftest."""
 
 import dataclasses
@@ -83,25 +84,31 @@ def need_card():
 # -- CPU --------------------------------------------------------------------
 
 def reason_cases(device):
-    """(name, model, xy_probe, grad mode) -> the reason expected."""
+    """name -> (model, camera, xy_probe, grad mode, the reason expected).
+    A gradient for the model or a probe, or a probe, is no reason (G and
+    G-bwd, on CUDA); one for the camera is (pose optimisation)."""
     model = scene(device, n=64, sh_degree=1)
     trainable = model.trainable()
     probe = torch.zeros((64, 2), device=device)
+    cam = camera(device)
+    posed = Camera(cam.view.clone().requires_grad_(), cam.proj, cam.env_rot)
     return {
-        "inference": (model, None, True, None),
-        "grad": (trainable, None, True, "grad"),
-        "trainable_no_grad": (trainable, None, False, None),
-        "xy_probe": (trainable, probe, True, "xy_probe"),
-        "xy_probe_no_grad": (model, probe, False, "xy_probe"),
-        "dtype": (model.astype(torch.bfloat16), None, False, "dtype"),
+        "inference": (model, cam, None, True, None),
+        "grad": (trainable, cam, None, True, None),
+        "trainable_no_grad": (trainable, cam, None, False, None),
+        "xy_probe": (trainable, cam, probe, True, None),
+        "xy_probe_no_grad": (model, cam, probe, False, None),
+        "dtype": (model.astype(torch.bfloat16), cam, None, False, "dtype"),
+        "camera_grad": (model, posed, None, True, "camera_grad"),
+        "camera_grad_no_grad": (model, posed, None, False, None),
     }
 
 
 @pytest.mark.parametrize("name", list(reason_cases("cpu")))
 def test_plain_reason(name):
-    model, probe, grad, want = reason_cases("cpu")[name]
+    model, cam, probe, grad, want = reason_cases("cpu")[name]
     with torch.set_grad_enabled(grad):
-        assert projection.plain_reason(model, camera("cpu"), probe) == want
+        assert projection.plain_reason(model, cam, probe) == want
 
 
 @pytest.mark.parametrize("name", list(reason_cases("cpu")))
@@ -109,8 +116,7 @@ def test_cpu_calls_take_the_plain_version_and_launch_nothing(name):
     """Whatever the reason, a CPU call runs the plain version: no launch,
     nothing counted (plain_calls counts CUDA calls), the plain version's
     splats bit for bit."""
-    model, probe, grad, _ = reason_cases("cpu")[name]
-    cam = camera("cpu")
+    model, cam, probe, grad, _ = reason_cases("cpu")[name]
     launches, plain = dict(cuda_lib.launches), dict(projection.plain_calls)
     with torch.set_grad_enabled(grad):
         got = projection.project_gaussians(model, cam, CFG, xy_probe=probe)
@@ -120,7 +126,8 @@ def test_cpu_calls_take_the_plain_version_and_launch_nothing(name):
     assert dict(projection.plain_calls) == plain
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
-    assert got.xy.requires_grad == (grad and (name in ("grad", "xy_probe")))
+    assert got.xy.requires_grad == (grad and (name in (
+        "grad", "xy_probe", "camera_grad")))
 
 
 def test_the_wrapper_refuses_other_devices():
@@ -199,9 +206,10 @@ def test_kernel_matches_the_plain_version_on_the_card(case):
 @pytest.mark.cuda
 def test_frames_and_the_choice_of_path_on_the_card(monkeypatch):
     """render() through G against render() through the plain version
-    (img_rel_l2 <= 1e-5); a bf16 model, a grad-recording call and an
-    xy_probe take the plain version, each counted under its reason; the
-    wrapper refuses a non-contiguous or f64 input."""
+    (img_rel_l2 <= 1e-5); an xy_probe runs G, and a call that records a
+    gradient for the model G and then G-bwd; a bf16 model and a camera
+    that requires grad take the plain version, each counted under its
+    reason; the wrapper refuses a non-contiguous or f64 input."""
     need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     model = scene("cuda")
@@ -225,10 +233,13 @@ def test_frames_and_the_choice_of_path_on_the_card(monkeypatch):
     sp = projection.project_gaussians(trainable, cam, CFG)
     sp.color.sum().backward()
     assert trainable.sh.grad is not None
+    posed = Camera(cam.view.clone().requires_grad_(), cam.proj, cam.env_rot)
+    projection.project_gaussians(model, posed, CFG).xy.sum().backward()
+    assert posed.view.grad is not None
     torch.cuda.synchronize()
-    assert cuda_lib.launches["project_gaussians"] == 1
-    assert dict(projection.plain_calls) == {"dtype": 1, "xy_probe": 1,
-                                            "grad": 1}
+    assert cuda_lib.launches["project_gaussians"] == 3
+    assert cuda_lib.launches["project_gaussians_bwd"] == 1
+    assert dict(projection.plain_calls) == {"dtype": 1, "camera_grad": 1}
     args = [model.means, model.log_scales, model.quats, model.opacities,
             model.sh, cam.view, cam.proj, cam.env_rot, CFG, 3]
     wide = torch.zeros((model.num_gaussians, 4), device="cuda")
@@ -237,4 +248,4 @@ def test_frames_and_the_choice_of_path_on_the_card(monkeypatch):
                           (4, model.sh.double(), "dtype")):
         with pytest.raises(ValueError, match=match):
             kernel.project(*args[:i], bad, *args[i + 1:])
-    assert cuda_lib.launches["project_gaussians"] == 1
+    assert cuda_lib.launches["project_gaussians"] == 3

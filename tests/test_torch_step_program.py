@@ -4,7 +4,8 @@ runtime/engine.py with grad=True). On the CPU the program runs eagerly:
 it was, the example camera and target are the engine's own copies, and
 fit's steps equal a loop of train_step. On a CUDA card (marked `cuda`,
 skipped without one) the step is captured: after register the state
-equals its snapshot bit for bit, replays count no launch, and each of 3
+equals its snapshot bit for bit, its projection runs kernels G and G-bwd
+(no plain call), replays count no launch, and each of 3
 replays matches the eager step from the same state within kernel D's
 row-scaled bound (atomics reorder the gradient sums)."""
 
@@ -16,6 +17,7 @@ import torch
 
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_ipu_tpu_torch.render import projection
 from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
@@ -164,12 +166,15 @@ def test_captured_step_matches_eager_steps():
     snapshot = state.to_numpy()
     eng = RenderEngine(RuntimeConfig(device="cuda"))
     cuda_lib.launches.clear()
+    projection.plain_calls.clear()
     prog = trainer.register_step(eng, state, cams[0], targets[0], cfg, TC)
     assert prog.graph is not None
     _assert_leaves_equal(state.to_numpy(), snapshot)
     captured = dict(cuda_lib.launches)
-    for k in ("rasterize_strict_aux", "rasterize_bwd", "coverage_masks"):
+    for k in ("rasterize_strict_aux", "rasterize_bwd", "coverage_masks",
+              "project_gaussians", "project_gaussians_bwd"):
         assert captured[k] == engine_lib.WARMUP_CALLS + 1, captured
+    assert not projection.plain_calls
     for cam, target in zip(cams, targets):
         eager = _copy(state, dev)       # each step from the same state
         before = dict(cuda_lib.launches)
@@ -298,13 +303,17 @@ def test_captured_densify_step_matches_eager_steps():
     snapshot = _densify_leaves(state, d)
     eng = RenderEngine(RuntimeConfig(device="cuda"))
     cuda_lib.launches.clear()
+    projection.plain_calls.clear()
     densify.register_step(eng, state, d, cams[0], targets[0], GROUP_CFG, TC,
                           0.1, torch.zeros((), dtype=torch.int64, device=dev),
                           obs_all, mask_all)
     _assert_leaves_equal(_densify_leaves(state, d), snapshot)
     captured = dict(cuda_lib.launches)
-    for k in ("rasterize_strict_aux", "rasterize_bwd"):
+    # The image render (with the probe) and the depth render.
+    for k in ("rasterize_strict_aux", "rasterize_bwd", "project_gaussians",
+              "project_gaussians_bwd"):
         assert captured[k] == 2 * (engine_lib.WARMUP_CALLS + 1), captured
+    assert not projection.plain_calls
     step = densify.make_train_step(GROUP_CFG, TC, 0.1)
     for k, (cam, target) in enumerate(zip(cams, targets)):
         eager = _copy(state, dev)
