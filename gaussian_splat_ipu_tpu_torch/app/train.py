@@ -89,13 +89,13 @@ gloo otherwise (processes sharing one card, or the CPU):
   with a warning, and --resume exits.
 
 Each step is one replay of a train program captured as a CUDA graph
-(runtime/engine.RenderEngine; trainer, densify or aux_opt register_step)
-with the view's camera, target and view index copied in; on --device cpu
-the same program runs eagerly. The density event and the opacity reset
-run eagerly between replays, in place on the captured tensors. Whole
-epochs step as the reference's epoch programs do (the view order a fresh
-permutation each epoch under --shuffle), then the last
-partial epoch one step at a time. The final, holdout and probe renders
+(runtime/engine.RenderEngine; the run's step kind, registered by
+trainer.register_view_step) with the view's camera, target and view index
+copied in; on --device cpu the same program runs eagerly. The density
+event and the opacity reset run eagerly between replays, in place on the
+captured tensors. Whole epochs step as the reference's epoch programs do
+(the view order a fresh permutation each epoch under --shuffle), then the
+last partial epoch one step at a time. The final, holdout and probe renders
 replay one render program (app/main.py::splat_program). The run logs the
 loss and ends with the reference's `final_loss=... psnr=...` line.
 """
@@ -649,55 +649,41 @@ def _run(args, engine, multiproc: bool) -> dict:
         vb_groups = [idxs[g:g + args.view_batch]
                      for g in range(0, len(idxs), args.view_batch)]
 
-    def vb_args(sel):
-        return (state, tuple(cameras[k] for k in sel),
+    def vb_views(sel):
+        return (tuple(cameras[k] for k in sel),
                 torch.stack([target_of(k) for k in sel]))
 
     def register_step():
+        """Register the run's step program at the active SH degree, the one
+        place that picks the step kind: returns it and inputs(view index,
+        camera, target) -> its arguments for that view (with --view-batch
+        a batch's cameras and stacked targets)."""
         acfg = (cfg if active_sh < 0 else
                 dataclasses.replace(cfg, active_sh_degree=active_sh))
-        vi = torch.zeros((), dtype=torch.int64, device=device)
+        view = (cam0, target0)
         if args.densify:
-            prog = densify.register_step(
-                engine, state, dstate, cam0, target0, acfg, tc, depth_weight,
-                vi, obs_all, mask_all,
-                step_fn=(distributed.make_sharded_densify_train_step(
-                    mesh, acfg, tc) if use_dist else None), eager=eager)
+            name, (step, inputs) = densify.STEP_PROGRAM, densify.step_program(
+                state, dstate, acfg, tc, depth_weight, obs_all, mask_all,
+                distributed.make_sharded_densify_train_step(mesh, acfg, tc)
+                if use_dist else None)
         elif args.view_batch > 1:
-            _, cams, tgts = vb_args(vb_groups[0])
+            name, view, inputs = _VB_STEP, vb_views(vb_groups[0]), (
+                lambda vi, cams, tgts: (state, cams, tgts))
             step = distributed.make_view_batch_train_step(
                 mesh, acfg, tc, pair_capacity=args.pair_capacity)
-            prog = engine.register(_VB_STEP, step, (
-                state, tuple(trainer.static_copies(c, tgts)[0]
-                             for c in cams), tgts.clone()),
-                grad=True, eager=eager)
-        elif use_dist:
-            prog = trainer.register_step(
-                engine, state, cam0, target0, acfg, tc,
-                step_fn=distributed.make_sharded_train_step(
-                    mesh, acfg, tc, pair_capacity=args.pair_capacity),
-                eager=eager)
         elif step_aux is not None:
-            prog = aux_opt.register_step(
-                engine, state, step_aux, vi, cam0, target0, obs_all,
-                mask_all, acfg, tc, args.pose_opt, args.exposure_opt,
-                depth_weight)
+            name, (step, inputs) = aux_opt.STEP_PROGRAM, aux_opt.step_program(
+                state, step_aux, obs_all, mask_all, acfg, tc, args.pose_opt,
+                args.exposure_opt, depth_weight)
         else:
-            prog = trainer.register_step(engine, state, cam0, target0, acfg,
-                                         tc)
-        return registered(prog, active_sh)
-
-    def step_args(k, target):
-        """The step program's arguments for view k."""
-        cam, vi = cameras[k], torch.tensor(k, dtype=torch.int64)
-        if args.densify:
-            stats = (state, dstate.grad_sum, dstate.vis_count)
-            if depth_weight > 0:
-                return (*stats, vi, cam, target, obs_all, mask_all)
-            return (*stats, cam, target)
-        if step_aux is not None:
-            return (state, step_aux, vi, cam, target, obs_all, mask_all)
-        return (state, cam, target)
+            name, (step, inputs) = trainer.STEP_PROGRAM, trainer.step_program(
+                state, acfg, tc, distributed.make_sharded_train_step(
+                    mesh, acfg, tc, pair_capacity=args.pair_capacity)
+                if use_dist else None)
+        prog = trainer.register_view_step(
+            engine, name, step, inputs, *view,
+            torch.zeros((), dtype=torch.int64), eager)
+        return registered(prog, active_sh), inputs
 
     register_render()
     if target_renders is None:
@@ -710,7 +696,7 @@ def _run(args, engine, multiproc: bool) -> dict:
         log.warning("target renders dropped pairs: overflow %s, truncated "
                     "%s: raise --pair-capacity", target_overflow,
                     target_truncated)
-    step_prog = register_step()
+    step_prog, step_inputs = register_step()
     log.info("step program: %s", engine.manifest())
 
     inflight = collections.deque()
@@ -751,7 +737,8 @@ def _run(args, engine, multiproc: bool) -> dict:
             retire()
 
     def run_step(k, target):
-        launch(*step_args(k, target))
+        launch(*step_inputs(torch.tensor(k, dtype=torch.int64), cameras[k],
+                            target))
 
     # View-batch drop counters: each step's (exchange_overflow, overflow,
     # truncated) stays on the device until it is _VB_KEEP steps old (or a
@@ -830,15 +817,15 @@ def _run(args, engine, multiproc: bool) -> dict:
         if (args.sh_step_every > 0 and active_sh < full_sh_degree
                 and i // args.sh_step_every > active_sh):
             active_sh = min(full_sh_degree, i // args.sh_step_every)
-            step_prog = register_step()
+            step_prog, step_inputs = register_step()
             log.info("SH schedule: active degree -> %d at step %d",
                      active_sh, i)
         if args.densify or (not use_dist and args.steps - i >= args.views):
             run_epoch()
             i += args.views
         elif args.view_batch > 1:
-            launch(*vb_args(vb_groups[(i // args.view_batch)
-                                      % len(vb_groups)]))
+            launch(*step_inputs(None, *vb_views(
+                vb_groups[(i // args.view_batch) % len(vb_groups)])))
             drain_vb(i, keep=_VB_KEEP)
             i += args.view_batch
         elif use_dist:
@@ -902,7 +889,7 @@ def _run(args, engine, multiproc: bool) -> dict:
                         state, dstate = densify.grow_capacity(state, dstate,
                                                               2 * slots)
                     register_render()
-                    step_prog = register_step()
+                    step_prog, step_inputs = register_step()
                     log.info("slot buffer grown to %d (programs registered "
                              "again)", 2 * slots)
                 log.info("densify at step %d: %d gaussians alive (%d "

@@ -46,6 +46,7 @@ sharded programs count every member tile against the per-tile bound
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -62,7 +63,8 @@ from gaussian_splat_ipu_tpu_torch.render.kernels import rasterize
 from gaussian_splat_ipu_tpu_torch.render.projection import (ProjectedSplats,
                                                             project_gaussians)
 from gaussian_splat_ipu_tpu_torch.train import densify as densify_lib
-from gaussian_splat_ipu_tpu_torch.train import losses, trainer
+from gaussian_splat_ipu_tpu_torch.train import trainer
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
 I32 = torch.int32
@@ -412,16 +414,10 @@ def make_sharded_train_step(mesh: Mesh, raster_cfg: RasterConfig,
     """step(state, camera, target) -> (state, loss): trainer.train_step
     with the sharded render, updating the state in place. The gradients of
     the exchange land on the owning shards' parameter slices."""
-    def image_fn(params, camera, cfg):
-        return render_image_sharded(params, camera, cfg, mesh, axis,
-                                    pair_capacity)
-
-    def step(state: trainer.TrainState, camera: Camera,
-             target: torch.Tensor):
-        return trainer.train_step(state, camera, target, raster_cfg,
-                                  train_cfg, image_fn=image_fn)
-
-    return step
+    return functools.partial(
+        trainer.train_step, raster_cfg=raster_cfg, train_cfg=train_cfg,
+        image_fn=functools.partial(render_image_sharded, mesh=mesh,
+                                   axis=axis, pair_capacity=pair_capacity))
 
 
 def make_view_batch_train_step(mesh: Mesh, raster_cfg: RasterConfig,
@@ -438,18 +434,12 @@ def make_view_batch_train_step(mesh: Mesh, raster_cfg: RasterConfig,
     them. Updates the state in place."""
     def step(state: trainer.TrainState, cameras: Sequence[Camera],
              targets: torch.Tensor):
-        params = state.params
-        images, stats = render_views_sharded(
-            params, cameras, raster_cfg, mesh, view_axis, shard_axis,
-            pair_capacity, with_stats=True)
-        per_view = torch.stack([
-            losses.render_loss(im, tg, train_cfg.ssim_weight)
-            for im, tg in zip(images.unbind(0), targets.unbind(0))])
-        loss = torch.mean(per_view)
-        grads = torch.autograd.grad(loss, tuple(params.parameters()))
-        trainer.apply_param_updates(params, dict(zip(FIELDS, grads)),
-                                    state.opt_state, train_cfg)
-        state.step.add_(1)
+        with profiling.span("render", state.params.device):
+            images, stats = render_views_sharded(
+                state.params, cameras, raster_cfg, mesh, view_axis,
+                shard_axis, pair_capacity, with_stats=True)
+        loss = trainer.image_loss(images, targets, train_cfg)
+        trainer.gradient_step(state, loss, train_cfg)
         return loss.detach(), torch.stack([stats["exchange_overflow"],
                                            stats["overflow"],
                                            stats["truncated"]])
@@ -465,12 +455,9 @@ def make_sharded_densify_train_step(mesh: Mesh, raster_cfg: RasterConfig,
     grad_sum, vis_count, camera, target) -> loss. The probe is sharded
     like the model, so its gradient, the NDC norm scaled by half the image
     size, accumulates on the owning shard's slots."""
-    def render_fn(params, camera, cfg, xy_probe=None):
-        return render_sharded(params, camera, cfg, mesh, axis, pair_capacity,
-                              xy_probe=xy_probe)
-
-    return densify_lib.make_train_step(raster_cfg, train_cfg,
-                                       render_fn=render_fn)
+    return densify_lib.make_train_step(raster_cfg, train_cfg, render_fn=(
+        functools.partial(render_sharded, mesh=mesh, axis=axis,
+                          pair_capacity=pair_capacity)))
 
 
 def grow_capacity_sharded(mesh: Mesh, state: trainer.TrainState,

@@ -16,11 +16,11 @@ import numpy as np
 import torch
 
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
-from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render_image
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
-from gaussian_splat_ipu_tpu_torch.train import (appearance, depth, losses,
-                                                pose_opt, trainer)
+from gaussian_splat_ipu_tpu_torch.train import (appearance, depth, pose_opt,
+                                                trainer)
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
 STEP_PROGRAM = "aux_step"
@@ -79,41 +79,38 @@ def make_aux_step(raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
     """step(state, aux, view_idx, camera, target, obs, mask) -> loss,
     optimising the scene and every active module in place. view_idx is a
     () integer tensor; obs / mask are the view's depth observations (unused
-    when depth_weight == 0)."""
+    when depth_weight == 0). The deltas and maps are gradient_step's
+    leaves, their gradients each module's own Adam step."""
     def step(state: trainer.TrainState, aux: AuxState,
              view_idx: torch.Tensor, camera: Camera, target: torch.Tensor,
              obs: Optional[torch.Tensor],
              mask: Optional[torch.Tensor]) -> torch.Tensor:
         params = state.params
-        leaves = list(params.parameters())
-        cam = camera
-        if pose_lr > 0:
-            deltas = aux.pose.deltas.detach().requires_grad_()
-            leaves.append(deltas)
-            cam = pose_opt.apply_delta(
-                camera, trainer.select_row(deltas, view_idx))
-        image = render_image(params, cam, raster_cfg)
-        if exposure_lr > 0:
-            mats = aux.exposure.mats.detach().requires_grad_()
-            leaves.append(mats)
-            image = appearance.apply_exposure(
-                image, trainer.select_row(mats, view_idx))
-        loss = losses.render_loss(image, target, train_cfg.ssim_weight)
-        if depth_weight > 0.0:
-            # The depth residuals use the pose-corrected camera.
-            loss = loss + depth_weight * depth.sparse_depth_loss(
-                params, cam, obs, mask, raster_cfg)
-        grads = torch.autograd.grad(loss, leaves)
-        trainer.apply_param_updates(params, dict(zip(FIELDS, grads)),
-                                    state.opt_state, train_cfg)
-        rest = iter(grads[len(FIELDS):])
+        leaves, cam = [], camera
+        with profiling.span("render", params.device):
+            if pose_lr > 0:
+                deltas = aux.pose.deltas.detach().requires_grad_()
+                leaves.append(deltas)
+                cam = pose_opt.apply_delta(
+                    camera, trainer.select_row(deltas, view_idx))
+            image = render_image(params, cam, raster_cfg)
+            if exposure_lr > 0:
+                mats = aux.exposure.mats.detach().requires_grad_()
+                leaves.append(mats)
+                image = appearance.apply_exposure(
+                    image, trainer.select_row(mats, view_idx))
+        # The depth residuals use the pose-corrected camera.
+        loss = trainer.image_loss(image, target, train_cfg, (
+            lambda: depth_weight * depth.sparse_depth_loss(
+                params, cam, obs, mask, raster_cfg))
+            if depth_weight > 0.0 else None)
+        rest = iter(trainer.gradient_step(state, loss, train_cfg, leaves))
         if pose_lr > 0:
             trainer.adam_apply(aux.pose.deltas, next(rest),
                                aux.pose.opt_state, pose_lr)
         if exposure_lr > 0:
             trainer.adam_apply(aux.exposure.mats, next(rest),
                                aux.exposure.opt_state, exposure_lr)
-        state.step.add_(1)
         return loss.detach()
 
     return step
@@ -127,6 +124,21 @@ def dummy_depth_obs(num_views: int = 1, *, device):
             torch.zeros((num_views, 1), dtype=torch.bool, device=device))
 
 
+def step_program(state: trainer.TrainState, aux: AuxState,
+                 obs_all: torch.Tensor, mask_all: torch.Tensor,
+                 raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
+                 pose_lr: float = 0.0, exposure_lr: float = 0.0,
+                 depth_weight: float = 0.0):
+    """The aux step as trainer.register_view_step's (program, inputs),
+    fn(state, aux, view_idx, camera, target, obs_all, mask_all) -> loss:
+    the () view index picks the view's delta, exposure map and packed
+    observations inside the program."""
+    step = make_aux_step(raster_cfg, train_cfg, pose_lr, exposure_lr,
+                         depth_weight)
+    return trainer.per_view_program(step, pass_view=True), (
+        lambda vi, cam, tgt: (state, aux, vi, cam, tgt, obs_all, mask_all))
+
+
 def register_step(engine: RenderEngine, state: trainer.TrainState,
                   aux: AuxState, view_idx: torch.Tensor, camera: Camera,
                   target: torch.Tensor, obs_all: torch.Tensor,
@@ -134,19 +146,9 @@ def register_step(engine: RenderEngine, state: trainer.TrainState,
                   train_cfg: trainer.TrainConfig, pose_lr: float = 0.0,
                   exposure_lr: float = 0.0, depth_weight: float = 0.0,
                   name: str = STEP_PROGRAM):
-    """Register the aux step as one train program, fn(state, aux, view_idx,
-    camera, target, obs_all, mask_all) -> loss: the () view index picks
-    the view's delta, exposure map and packed observations inside the
-    program."""
-    step = make_aux_step(raster_cfg, train_cfg, pose_lr, exposure_lr,
-                         depth_weight)
-
-    def program(state, aux, view_idx, camera, target, obs_all, mask_all):
-        return step(state, aux, view_idx, camera, target,
-                    trainer.select_row(obs_all, view_idx),
-                    trainer.select_row(mask_all, view_idx))
-
-    cam, tgt = trainer.static_copies(camera, target)
-    return engine.register(name, program, (
-        state, aux, view_idx.to(state.step.device).clone(), cam, tgt,
-        obs_all, mask_all), grad=True)
+    """Register step_program on `engine` (trainer.register_view_step)."""
+    return trainer.register_view_step(
+        engine, name, *step_program(state, aux, obs_all, mask_all,
+                                    raster_cfg, train_cfg, pose_lr,
+                                    exposure_lr, depth_weight),
+        camera, target, view_idx)

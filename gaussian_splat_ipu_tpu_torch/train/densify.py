@@ -248,11 +248,13 @@ def make_train_step(raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
                     depth_weight: float = 0.0, render_fn=render):
     """The train step that also accumulates the densification statistics:
     step(state, grad_sum, vis_count, camera, target[, obs, mask]) -> loss,
-    updating the state and both statistics in place. With depth_weight > 0
-    it adds the sparse depth term (train/depth.py) on the view's (K, 3)
-    observations and (K,) mask. render_fn(params, camera, cfg, xy_probe=)
-    -> an output with .image and .visible: the single-device render by
-    default (parallel/distributed.py passes the sharded one)."""
+    updating the state and both statistics in place: the render with the
+    xy probe, trainer's image_loss (with depth_weight > 0 plus the sparse
+    depth term, train/depth.py, on the view's (K, 3) observations and (K,)
+    mask) and gradient_step with the probe as a leaf. render_fn(params,
+    camera, cfg, xy_probe=) -> an output with .image and .visible: the
+    single-device render by default (parallel/distributed.py passes the
+    sharded one)."""
     def step(state: trainer.TrainState, grad_sum: torch.Tensor,
              vis_count: torch.Tensor, camera: Camera, target: torch.Tensor,
              obs: Optional[torch.Tensor] = None,
@@ -260,24 +262,39 @@ def make_train_step(raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
         params = state.params
         probe = torch.zeros((params.num_gaussians, 2), dtype=torch.float32,
                             device=params.device, requires_grad=True)
-        out = render_fn(params, camera, raster_cfg, xy_probe=probe)
-        loss = losses.render_loss(out.image, target, train_cfg.ssim_weight)
-        if depth_weight > 0.0:
-            loss = loss + depth_weight * depth.sparse_depth_loss(
-                params, camera, obs, mask, raster_cfg)
-        *grads, gxy = torch.autograd.grad(
-            loss, (*params.parameters(), probe))
+        with profiling.span("render", params.device):
+            out = render_fn(params, camera, raster_cfg, xy_probe=probe)
+        loss = trainer.image_loss(out.image, target, train_cfg, (
+            lambda: depth_weight * depth.sparse_depth_loss(
+                params, camera, obs, mask, raster_cfg))
+            if depth_weight > 0.0 else None)
+        (gxy,) = trainer.gradient_step(state, loss, train_cfg, (probe,))
         with torch.no_grad():
             visible = out.visible
             grad_sum.add_(torch.where(visible,
                                       _ndc_grad_norm(gxy, raster_cfg), 0.0))
             vis_count.add_(visible.to(torch.int32))
-        trainer.apply_param_updates(params, dict(zip(FIELDS, grads)),
-                                    state.opt_state, train_cfg)
-        state.step.add_(1)
         return loss.detach()
 
     return step
+
+
+def step_program(state: trainer.TrainState, dstate: DensifyState,
+                 raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
+                 depth_weight: float = 0.0, obs_all=None, mask_all=None,
+                 step_fn=None):
+    """The densify step as trainer.register_view_step's (program, inputs):
+    fn(state, grad_sum, vis_count, camera, target) -> loss, or with
+    depth_weight > 0 fn(state, grad_sum, vis_count, view_idx, camera,
+    target, obs_all, mask_all) -> loss. Only the tensors the step touches
+    are inputs: never the alive mask or the key. step_fn replaces the step
+    (without depth: the sharded one of parallel/distributed.py)."""
+    step = step_fn or make_train_step(raster_cfg, train_cfg, depth_weight)
+    stats = (state, dstate.grad_sum, dstate.vis_count)
+    if depth_weight <= 0.0:
+        return step, lambda vi, cam, tgt: (*stats, cam, tgt)
+    return trainer.per_view_program(step), lambda vi, cam, tgt: (
+        *stats, vi, cam, tgt, obs_all, mask_all)
 
 
 def register_step(engine: RenderEngine, state: trainer.TrainState,
@@ -286,30 +303,11 @@ def register_step(engine: RenderEngine, state: trainer.TrainState,
                   depth_weight: float = 0.0, view_idx=None, obs_all=None,
                   mask_all=None, name: str = STEP_PROGRAM, step_fn=None,
                   eager: str = ""):
-    """Register the densify step as a train program (grad=True): fn(state,
-    grad_sum, vis_count, camera, target) -> loss, or with depth_weight > 0
-    fn(state, grad_sum, vis_count, view_idx, camera, target, obs_all,
-    mask_all) -> loss, the () view index picking the view's packed
-    observations inside the program. Only the tensors the step touches are
-    inputs: never the alive mask or the key. step_fn replaces the step
-    (without depth: the sharded one of parallel/distributed.py); eager:
-    see RenderEngine.register."""
-    step = step_fn or make_train_step(raster_cfg, train_cfg, depth_weight)
-    cam, tgt = trainer.static_copies(camera, target)
-    stats = (state, dstate.grad_sum, dstate.vis_count)
-    if depth_weight <= 0.0:
-        return engine.register(name, step, (*stats, cam, tgt), grad=True,
-                               eager=eager)
-
-    def program(state, grad_sum, vis_count, view_idx, camera, target,
-                obs_all, mask_all):
-        return step(state, grad_sum, vis_count, camera, target,
-                    trainer.select_row(obs_all, view_idx),
-                    trainer.select_row(mask_all, view_idx))
-
-    return engine.register(name, program, (
-        *stats, view_idx.to(state.step.device).clone(), cam, tgt, obs_all,
-        mask_all), grad=True)
+    """Register step_program on `engine` (trainer.register_view_step)."""
+    return trainer.register_view_step(
+        engine, name, *step_program(state, dstate, raster_cfg, train_cfg,
+                                    depth_weight, obs_all, mask_all,
+                                    step_fn), camera, target, view_idx, eager)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 gaussian_splat_ipu_tpu/train/trainer.py).
 
 Pixel loss -> gradients through the differentiable render (rasterizer
-kernels C and D, the pair-table index_add_, projection by autograd) ->
-one per-group Adam update. The optimizer reproduces the reference's
-`make_optimizer` (trainer.py:53-96), optax's `multi_transform` of one Adam
-per parameter family, written as functions on tensors: torch.optim.Adam
-cannot scale half of one tensor (the SH bands >= 1) after the Adam step.
+kernels C and D, the pair-table index_add_, projection kernels G and
+G-bwd, render/projection.py) -> one per-group Adam update. The optimizer
+reproduces the reference's `make_optimizer` (trainer.py:53-96), optax's
+`multi_transform` of one Adam per parameter family, written as functions
+on tensors: torch.optim.Adam cannot scale half of one tensor (the SH bands
+>= 1) after the Adam step.
 
   * Adam as optax's: b1 0.9, b2 0.999, eps = adam_eps outside the square
     root, bias correction 1 - b**count with count incremented first;
@@ -20,6 +21,10 @@ cannot scale half of one tensor (the SH bands >= 1) after the Adam step.
 Every scalar of the update (counts, bias corrections, the scheduled rate)
 stays on the device, so a step never waits for the device.
 `train_step` updates the state's tensors in place and returns it.
+
+Every step kind (train_step, densify's, aux_opt's, the view batch's)
+renders in the span "render", takes `image_loss` and ends in
+`gradient_step`, so each records the same spans.
 
 The compiled step (the reference jits it, trainer.py:138/160): on CUDA
 `register_step` captures one train_step as a CUDA graph in a
@@ -35,6 +40,7 @@ ranges and the pair-table VJP's `index_add_` add with atomics.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -145,20 +151,30 @@ def init_state(model: GaussianModel,
     return TrainState(model, OptState(adam, zero.clone()), zero.clone())
 
 
+def image_loss(image: torch.Tensor, target: torch.Tensor,
+               train_cfg: TrainConfig, extra=None) -> torch.Tensor:
+    """The render loss of `image`, or the mean over a stack of V images,
+    in the span "loss", the image marked "loss" (its gradient's arrival
+    ends "loss.bwd"); extra(), built after it, is added (the depth term)."""
+    w = train_cfg.ssim_weight
+    image = profiling.mark(image, "loss")
+    with profiling.span("loss", image.device):
+        loss = (losses.render_loss(image, target, w) if image.ndim == 3
+                else torch.mean(torch.stack([
+                    losses.render_loss(im, tg, w)
+                    for im, tg in zip(image.unbind(0), target.unbind(0))])))
+        return loss if extra is None else loss + extra()
+
+
 def loss_fn(params: GaussianModel, camera: Camera, target: torch.Tensor,
             raster_cfg: RasterConfig, train_cfg: TrainConfig,
             image_fn=render_image) -> torch.Tensor:
     """The render loss of `image_fn(params, camera, raster_cfg)`, the
     single-device render by default (parallel/distributed.py passes the
-    sharded one). Spans "render" and "loss" while spans are recorded, and
-    the image marked "loss" (utils/profiling.mark: its gradient's arrival
-    ends "loss.bwd")."""
-    dev = params.device
-    with profiling.span("render", dev):
+    sharded one), rendered in the span "render" (then image_loss's)."""
+    with profiling.span("render", params.device):
         image = image_fn(params, camera, raster_cfg)
-    image = profiling.mark(image, "loss")
-    with profiling.span("loss", dev):
-        return losses.render_loss(image, target, train_cfg.ssim_weight)
+    return image_loss(image, target, train_cfg)
 
 
 def means_lr(count: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
@@ -234,55 +250,93 @@ def apply_param_updates(params: GaussianModel, grads: dict,
         torch.linalg.vector_norm(q, dim=-1, keepdim=True), 1e-8))
 
 
-def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
-               raster_cfg: RasterConfig, train_cfg: TrainConfig,
-               image_fn=render_image):
-    """One forward + backward + update step. Updates `state` in place and
-    returns (state, loss), loss a () device tensor. Spans (while
-    recorded): loss_fn's, then "backward" around the gradients (with
-    "loss.bwd" inside) and "adam" around the update."""
+def gradient_step(state: TrainState, loss: torch.Tensor,
+                  train_cfg: TrainConfig, leaves=()) -> tuple:
+    """Every step once it has its loss: the gradients of the model and of
+    the step's own `leaves` in one autograd call (span "backward"), the
+    Adam update (span "adam"), the step count. The leaves' gradients."""
     params = state.params
-    loss = loss_fn(params, camera, target, raster_cfg, train_cfg, image_fn)
     with profiling.span("backward", params.device):
-        grads = torch.autograd.grad(loss, tuple(params.parameters()))
+        grads = torch.autograd.grad(loss, (*params.parameters(), *leaves))
     with profiling.span("adam", params.device):
         apply_param_updates(params, dict(zip(FIELDS, grads)),
                             state.opt_state, train_cfg)
     state.step.add_(1)
+    return grads[len(FIELDS):]
+
+
+def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
+               raster_cfg: RasterConfig, train_cfg: TrainConfig,
+               image_fn=render_image):
+    """loss_fn, then gradient_step: updates `state` in place and returns
+    (state, loss), loss a () device tensor."""
+    loss = loss_fn(state.params, camera, target, raster_cfg, train_cfg,
+                   image_fn)
+    gradient_step(state, loss, train_cfg)
     return state, loss.detach()
 
 
 STEP_PROGRAM = "train_step"
 
 
+def step_program(state: TrainState, raster_cfg: RasterConfig,
+                 train_cfg: TrainConfig, step_fn=None):
+    """(program, inputs) of train_step, or of step_fn(state, camera,
+    target) -> (state, loss) (the sharded step): see register_view_step."""
+    step_fn = step_fn or functools.partial(
+        train_step, raster_cfg=raster_cfg, train_cfg=train_cfg)
+    return (lambda st, cam, tgt: step_fn(st, cam, tgt)[1],
+            lambda vi, cam, tgt: (state, cam, tgt))
+
+
+def per_view_program(step, pass_view: bool = False):
+    """program(*lead, view_idx, camera, target, obs_all, mask_all) ->
+    step(*lead, [view_idx,] camera, target, obs, mask), the view's depth
+    rows picked inside the program, so one capture serves every view."""
+    def program(*args):
+        *lead, view_idx, camera, target, obs_all, mask_all = args
+        if pass_view:
+            lead.append(view_idx)
+        return step(*lead, camera, target, select_row(obs_all, view_idx),
+                    select_row(mask_all, view_idx))
+
+    return program
+
+
+def register_view_step(engine: RenderEngine, name: str, program, inputs,
+                       camera, target: torch.Tensor, view_idx=None,
+                       eager: str = ""):
+    """Register `program` as a train program (grad=True) on the example
+    inputs(view_idx, camera, target) -> its arguments, the view's index
+    (if any), camera(s) and target the engine's own copies; the state and
+    the rest `inputs` names are the registered objects, which a run
+    updates in place. eager: see RenderEngine.register."""
+    cam, tgt = static_copies(camera, target)
+    vi = None if view_idx is None else view_idx.to(engine.device).clone()
+    return engine.register(name, program, inputs(vi, cam, tgt), grad=True,
+                           eager=eager)
+
+
 def register_step(engine: RenderEngine, state: TrainState, camera: Camera,
                   target: torch.Tensor, raster_cfg: RasterConfig,
                   train_cfg: TrainConfig, name: str = STEP_PROGRAM,
                   step_fn=None, eager: str = ""):
-    """Register train_step on `engine` as a train program (grad=True),
-    fn(state, camera, target) -> the () loss: on CUDA captured, with
-    `state` as it was afterwards. The state is the registered object, so
-    `engine.run(name, state, camera, target)` updates it in place and
-    hands back only the loss, no copy of the parameters; the camera and
-    target are copies, the static inputs each run copies into. step_fn
-    replaces train_step (the sharded step of parallel/distributed.py);
-    eager: see RenderEngine.register."""
-    def step(state: TrainState, camera: Camera, target: torch.Tensor):
-        if step_fn is not None:
-            return step_fn(state, camera, target)[1]
-        return train_step(state, camera, target, raster_cfg, train_cfg)[1]
-
-    return engine.register(name, step, (state, *static_copies(camera,
-                                                              target)),
-                           grad=True, eager=eager)
+    """Register step_program on `engine`: `engine.run(name, state, camera,
+    target)` updates the state in place and hands back only the loss."""
+    return register_view_step(
+        engine, name, *step_program(state, raster_cfg, train_cfg, step_fn),
+        camera, target, eager=eager)
 
 
-def static_copies(camera: Camera, target: torch.Tensor):
-    """The engine's own copies of an example camera and target: the static
-    inputs each run copies into, so a copy-in never writes the caller's
-    view."""
-    return (Camera(camera.view.clone(), camera.proj.clone(),
-                   camera.env_rot.clone()), target.detach().clone())
+def static_copies(camera, target: torch.Tensor):
+    """The engine's own copies of an example camera (or tuple of cameras)
+    and target, so a copy-in never writes the caller's view."""
+    def copy(c: Camera) -> Camera:
+        return Camera(c.view.clone(), c.proj.clone(), c.env_rot.clone())
+
+    cams = (tuple(map(copy, camera)) if isinstance(camera, tuple)
+            else copy(camera))
+    return cams, target.detach().clone()
 
 
 def fit(model: GaussianModel, cameras, targets, raster_cfg: RasterConfig,

@@ -2,8 +2,9 @@
 frame program and the train step. On the CPU: host and device spans
 (the log's plain stamp) nest with their parents, items and self times on
 a fake clock; device times map through the anchors; the Chrome export's
-shape; the order of pipeline.render's and trainer.train_step's spans with
-mark's backward firing; nothing recorded, no mark node and no kernel call
+shape; the order of pipeline.render's spans, and of every train step
+kind's (fit, densify with and without depth, aux, view batch) with mark's
+backward firing; nothing recorded, no mark node and no kernel call
 with recording off; the log's overflow; the readings of spans, and the
 benchmark's reader of the engine's register time. On a CUDA card (marked
 `cuda`, skipped without one): no stamp is captured with recording off;
@@ -28,11 +29,13 @@ import torch
 from gaussian_splat_ipu_tpu_torch.app import main as app
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_ipu_tpu_torch.parallel import distributed
+from gaussian_splat_ipu_tpu_torch.parallel import mesh as mesh_lib
 from gaussian_splat_ipu_tpu_torch.render import pipeline
 from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
-from gaussian_splat_ipu_tpu_torch.train import trainer
+from gaussian_splat_ipu_tpu_torch.train import aux_opt, densify, trainer
 from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig)
@@ -188,25 +191,75 @@ def test_render_spans_in_order(recording):
         assert all(a.end_ns <= b.start_ns for a, b in zip(got, got[1:]))
 
 
-def test_train_step_spans_in_order_with_the_marks_backward(recording):
+STEP_KINDS = ["fit", "densify", "densify-depth", "aux", "view-batch"]
+
+
+def _step_case(kind):
+    """A train step of each kind on the CPU, its scene and targets made
+    before recording starts: (register(engine), program name, the run's
+    arguments, the spans its render records inside "render")."""
     model, cam = _scene()
-    state = trainer.init_state(model.trainable())
     with torch.no_grad():
         target = pipeline.render(_scene(seed=1)[0], cam, CFG).image
+    tc = trainer.TrainConfig()
+    vi = torch.zeros((), dtype=torch.int64)
+    obs_all = torch.tensor([[[10.0, 10.0, 2.0], [30.0, 20.0, 3.0]]])
+    mask_all = torch.ones((1, 2), dtype=torch.bool)
+    if kind == "fit":
+        state = trainer.init_state(model.trainable())
+        return (lambda eng: trainer.register_step(eng, state, cam, target,
+                                                  CFG, tc),
+                trainer.STEP_PROGRAM, (state, cam, target), FRAME)
+    if kind.startswith("densify"):
+        state = trainer.init_state(densify.pad_model(model, 128).trainable())
+        d = densify.init_state(model.num_gaussians, 128, device="cpu")
+        dw = 0.1 if kind == "densify-depth" else 0.0
+        view = (vi, cam, target, obs_all, mask_all) if dw else (cam, target)
+        return (lambda eng: densify.register_step(
+            eng, state, d, cam, target, CFG, tc, dw, vi, obs_all, mask_all),
+            densify.STEP_PROGRAM, (state, d.grad_sum, d.vis_count, *view),
+            FRAME)
+    if kind == "aux":
+        state = trainer.init_state(model.trainable())
+        aux = aux_opt.init_aux_state(1, 1e-3, 1e-2, device="cpu")
+        return (lambda eng: aux_opt.register_step(
+            eng, state, aux, vi, cam, target, obs_all, mask_all, CFG, tc,
+            1e-3, 1e-2, 0.1), aux_opt.STEP_PROGRAM,
+            (state, aux, vi, cam, target, obs_all, mask_all), FRAME)
+    # Two views on a (2 view groups, 2 shards) CPU mesh, one tile row a
+    # shard; the sharded render records no frame spans of its own.
+    msh = mesh_lib.make_mesh_2d(2, 2, device="cpu")
+    state = trainer.init_state(mesh_lib.shard_model(model, msh).trainable())
+    cams = (cam, Camera.orbit(-np.ones(3), np.ones(3), 0.8, 48 / 32,
+                              rot_y_deg=120.0, device="cpu"))
+    with torch.no_grad():
+        targets = torch.stack([target, pipeline.render(
+            _scene(seed=1)[0], cams[1], CFG).image])
+    step = distributed.make_view_batch_train_step(msh, CFG, tc)
+    return (lambda eng: trainer.register_view_step(
+        eng, "view_batch_step", step, lambda _, c, t: (state, c, t), cams,
+        targets), "view_batch_step", (state, cams, targets), [])
+
+
+@pytest.mark.parametrize("kind", STEP_KINDS)
+def test_train_step_spans_in_order_with_the_marks_backward(recording, kind):
+    """Every step kind records the same spans around its own render:
+    "render", the image's "loss" mark and span, "backward" with "loss.bwd"
+    inside, "adam"."""
+    register, name, args, inner = _step_case(kind)
     rec = recording("cpu")
     eng = RenderEngine(RuntimeConfig(device="cpu"))
-    trainer.register_step(eng, state, cam, target, CFG,
-                          trainer.TrainConfig())
-    eng.run(trainer.STEP_PROGRAM, state, cam, target)
+    register(eng)
+    eng.run(name, *args)
     assert eng.last_item == 0
     dev = _by_track(rec.collect(), "device")
-    assert _names(dev) == ["engine.run", "render", *FRAME, "loss.fwd",
+    assert _names(dev) == ["engine.run", "render", *inner, "loss.fwd",
                            "loss", "backward", "loss.bwd", "adam"]
     idx = {s.name: rec.spans.index(s) for s in dev}
     parent = {s.name: s.parent for s in dev}
     assert parent["render"] == parent["loss"] == parent["backward"] \
         == parent["adam"] == idx["engine.run"]
-    assert all(parent[n] == idx["render"] for n in FRAME)
+    assert all(parent[n] == idx["render"] for n in inner)
     assert parent["loss.bwd"] == idx["backward"]
     assert all(s.item == 0 for s in dev)
     spans = {s.name: s for s in dev}
