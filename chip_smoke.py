@@ -29,8 +29,11 @@ Phases, each printing its own lines:
      of C and D on the 1M and app frames; the projection kernel G against
      the plain projection at 2^20 gaussians at SH 3 and on the app scene
      (render/kernels/project.compare: each value within its tolerances,
-     the radii that differ counted, none off a threshold), both timed.
-     Then, on a small scene, the CUDA binning (flat, rowseg R = 2 and 3,
+     the radii that differ counted, none off a threshold), both timed;
+     the optimizer kernel H (train/adam.py) against its plain twin at
+     2^20 gaussians at SH 3, in 2^21 slots at SH 3 and at 37,941 at SH
+     0, every state leaf bit for bit, timed beside the twin and, as a
+     yardstick, torch.optim.Adam(fused=True). Then, on a small scene, the CUDA binning (flat, rowseg R = 2 and 3,
      the three gather paths; tables bit-identical), rasterizer,
      pair-table gradient and model gradients against the CPU path;
   3. the app's render loop (app/main.py) on a seeded 37,941-gaussian PLY
@@ -383,6 +386,8 @@ KERNEL_SOURCES = {
     "project_gaussians_bwd": ("project_bwd.cu", "render/projection.py (no "
                               "Pallas kernel: XLA differentiates the "
                               "projection)"),
+    "adam": ("adam.cu", "train/adam.py (no Pallas kernel: the update is "
+             "optax's, fused by XLA)"),
 }
 
 
@@ -789,7 +794,7 @@ def step_err(label, got, ref, loss, want, tc) -> dict:
     rates, and such entries are counted. Counts, the means schedule count
     and step must be equal."""
     import torch
-    from gaussian_splat_ipu_tpu_torch.train import trainer
+    from gaussian_splat_ipu_tpu_torch.train import adam
     lr = dict(means=tc.lr_means * tc.scene_extent,
               log_scales=tc.lr_log_scales, quats=tc.lr_quats,
               opacities=tc.lr_opacities, sh=tc.lr_sh)
@@ -803,7 +808,7 @@ def step_err(label, got, ref, loss, want, tc) -> dict:
             TOL_BWD_ROW + TOL_BWD_REL) * abs(out["loss_eager"]):
         fail(f"{label}: loss {out['loss']} against the eager step's "
              f"{out['loss_eager']}")
-    for name in trainer.LABELS:
+    for name in adam.LABELS:
         a, b = got.opt_state.adam[name], ref.opt_state.adam[name]
         if not torch.equal(a.count, b.count):
             fail(f"{label}: {name} Adam count differs from the eager step")
@@ -1685,6 +1690,53 @@ def project_bwd_row(label: str, model, cam, cfg, cuda_ms) -> dict:
                 label=f"project_gaussians_bwd {label} plain", enforce=False),
             **bound(model.num_gaussians * (44 + 12 * kc + 40 + 44 + 12 * k),
                     0))
+
+
+def adam_row(label: str, n: int, sh_degree: int, cuda_ms) -> dict:
+    """Kernel H against its plain twin on two updates of n gaussians at
+    sh_degree (the second from nonzero moments), every leaf of the state
+    bit for bit (fails otherwise); the device ms of H, of the twin and, as
+    a library yardstick only, of torch.optim.Adam(fused=True) over the
+    same five tensors (another function: no SH scale, no renormalisation,
+    never called by the port); H's byte bound: p, g, mu and nu read and p,
+    mu and nu written once, 28 B a parameter."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
+                                                              GaussianModel)
+    from gaussian_splat_ipu_tpu_torch.train import adam, trainer
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tc = trainer.TrainConfig()
+    state = trainer.init_state(GaussianModel.random(
+        n, generator=gen, device=dev, sh_degree=sh_degree).trainable(), tc)
+    grads = {k: torch.randn(getattr(state.params, k).shape, generator=gen,
+                            device=dev) for k in FIELDS}
+    twin = clone_state(state)
+    for _ in range(2):
+        adam.adam_update(state.params, grads, state.opt_state, tc)
+        adam.apply_param_updates_torch(twin.params, grads, twin.opt_state,
+                                       tc)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(state.to_numpy(), twin.to_numpy())):
+        if not np.array_equal(a, b, equal_nan=True):
+            fail(f"adam {label}: state leaf {i} (TrainState.to_numpy's "
+                 f"order): {int((a != b).sum())} of {a.size} differ from "
+                 "the twin")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    row = dict(shape=label, parameters=n_params, leaves_equal=True,
+               ms=cuda_ms(lambda: adam.adam_update(
+                   state.params, grads, state.opt_state, tc),
+                   label=f"adam {label}"),
+               plain_ms=cuda_ms(lambda: adam.apply_param_updates_torch(
+                   twin.params, grads, twin.opt_state, tc),
+                   label=f"adam {label} plain", enforce=False))
+    del state
+    params = list(twin.params.parameters())
+    for p, k in zip(params, FIELDS):
+        p.grad = grads[k]
+    opt = torch.optim.Adam(params, lr=tc.lr_sh, eps=tc.adam_eps, fused=True)
+    row["library_ms"] = cuda_ms(opt.step, label=f"adam {label} library")
+    return dict(row, **bound(28 * n_params, 0))
 
 
 def check_aux_and_bwd(binned, cfg, seed: int, plain_reps: int, cuda_ms):
@@ -3108,6 +3160,18 @@ def main() -> int:
             **{k: bwd_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "bytes",
                                            "operations")})
+        # Kernel H at the capture's width, in the densify cell's 2^21
+        # slots, and on the app scene.
+        h_rows = [adam_row(label, n, degree, cuda_ms) for label, n, degree
+                  in (("2^20 SH 3", N_1M, 3), ("2^21 slots SH 3", 2 * N_1M,
+                                                3),
+                      ("37.9k SH 0", APP_GAUSSIANS, 0))]
+        for row in h_rows:
+            say("adam", **row, share=row["bound_ms"] / row["ms"])
+        results["adam"] = result("adam", max_abs_err=0.0, **{
+            k: h_rows[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "bytes",
+                                      "operations")})
         binned_app = binning.bin_splats(
             project_gaussians(app_scene.model, cam_app, cfg_app), cfg_app)
         binned_1m = binning.bin_splats(splats_1m, cfg_1m)
@@ -3361,7 +3425,7 @@ def main() -> int:
     need_launches("1M train", launches["train_1m"],
                   ("coverage_masks", "stream_expand", "rasterize_strict_aux",
                    "rasterize_bwd", "project_gaussians",
-                   "project_gaussians_bwd"), TRAIN_STEPS_1M)
+                   "project_gaussians_bwd", "adam"), TRAIN_STEPS_1M)
     params = list(state.params.parameters())
     qnorm = torch.linalg.vector_norm(state.params.quats.detach(), dim=-1)
     with torch.inference_mode():
@@ -3610,11 +3674,12 @@ def main() -> int:
             ("1M", model_1m, cfg_train_1m, tc_1m, [cam0] * 3,
              [t.clone() for t in tgt_1m],
              ("coverage_masks", "stream_expand", "rasterize_strict_aux",
-              "rasterize_bwd", "project_gaussians", "project_gaussians_bwd")),
+              "rasterize_bwd", "project_gaussians", "project_gaussians_bwd",
+              "adam")),
             ("app 640x360", init_app, cfg_tapp, trainer.TrainConfig(
                 scene_extent=extent), cams_t, [t.clone() for t in tgt_t],
              ("stream_expand", "rasterize_strict_aux", "rasterize_bwd",
-              "project_gaussians", "project_gaussians_bwd"))):
+              "project_gaussians", "project_gaussians_bwd", "adam"))):
         facts, launches[f"train step {label}"] = step_check(
             label, model, cfg, tc, cams, tgts, timer)
         step_facts[label] = facts

@@ -13,6 +13,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "clamp.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -43,17 +45,6 @@ struct CameraConsts {
   float origin[3];            // cam_origin = -(R^T t)
   float rot[9];               // rotate_y(env_rot[1]) @ rotate_x(env_rot[0])
 };
-
-// torch.clamp_min / clamp_max / clamp with float bounds: NaN stays NaN.
-__device__ __forceinline__ float clamp_min_nan(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-__device__ __forceinline__ float clamp_max_nan(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
-  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
-}
 
 __device__ void load_camera(CameraConsts& cam, const float* __restrict__ view,
                             const float* __restrict__ proj,

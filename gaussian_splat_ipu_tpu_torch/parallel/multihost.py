@@ -51,7 +51,7 @@ import torch.distributed.nn  # noqa: F401  (dist.nn.functional)
 from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
                                                           GaussianModel)
 from gaussian_splat_ipu_tpu_torch.parallel.mesh import SHARD_AXIS
-from gaussian_splat_ipu_tpu_torch.train import densify, trainer
+from gaussian_splat_ipu_tpu_torch.train import adam, densify, trainer
 
 log = logging.getLogger("gsplat")
 
@@ -271,7 +271,7 @@ def _slots(state: trainer.TrainState, dstate=None) -> list:
     five parameters, each label's Adam moments, then grad_sum, vis_count
     and alive."""
     ts = [getattr(state.params, k) for k in FIELDS]
-    for label in trainer.LABELS:
+    for label in adam.LABELS:
         st = state.opt_state.adam[label]
         ts += [st.mu, st.nu]
     if dstate is not None:
@@ -285,11 +285,11 @@ def _with_slots(state: trainer.TrainState, dstate, ts: list):
     it = iter(ts)
     params = GaussianModel(*(next(it).detach() for _ in FIELDS),
                            requires_grad=True)
-    adam = {label: trainer.AdamState(state.opt_state.adam[label].count,
-                                     next(it), next(it))
-            for label in trainer.LABELS}
+    moments = {label: trainer.AdamState(state.opt_state.adam[label].count,
+                                        next(it), next(it))
+               for label in adam.LABELS}
     new = trainer.TrainState(
-        params, trainer.OptState(adam, state.opt_state.means_lr_count),
+        params, trainer.OptState(moments, state.opt_state.means_lr_count),
         state.step)
     if dstate is None:
         return new, None

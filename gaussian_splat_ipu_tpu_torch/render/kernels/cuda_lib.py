@@ -83,6 +83,9 @@ _SIGNATURES = {
     "gsplat_stamp": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     # words (page-locked host memory), timeout_ns, stream
     "gsplat_anchor": (_P, ctypes.c_longlong, _P),
+    # p, g, mu, nu, count (5 pointers each), n (5 i64), neg_lr (5 f32),
+    # lr_count, consts (10 f32), lr_mode, sh_row, stream
+    "gsplat_adam_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -3,24 +3,12 @@ gaussian_splat_ipu_tpu/train/trainer.py).
 
 Pixel loss -> gradients through the differentiable render (rasterizer
 kernels C and D, the pair-table index_add_, projection kernels G and
-G-bwd, render/projection.py) -> one per-group Adam update. The optimizer
-reproduces the reference's `make_optimizer` (trainer.py:53-96), optax's
-`multi_transform` of one Adam per parameter family, written as functions
-on tensors: torch.optim.Adam cannot scale half of one tensor (the SH bands
->= 1) after the Adam step.
-
-  * Adam as optax's: b1 0.9, b2 0.999, eps = adam_eps outside the square
-    root, bias correction 1 - b**count with count incremented first;
-  * means: learning rate optax.exponential_decay(lr_means * scene_extent,
-    lr_means_decay_steps, lr_means_final / lr_means, end_value =
-    lr_means_final * scene_extent), non-staircase, evaluated at the
-    schedule's own count (0 at the first update);
-  * sh: the update of bands >= 1 is scaled by sh_rest_lr_scale after Adam;
-  * quaternions are renormalised after each step, by max(norm, 1e-8).
-
-Every scalar of the update (counts, bias corrections, the scheduled rate)
-stays on the device, so a step never waits for the device.
-`train_step` updates the state's tensors in place and returns it.
+G-bwd, render/projection.py) -> one per-group Adam update, the
+reference's `make_optimizer` (trainer.py:53-96), in train/adam.py: on
+CUDA kernel H (csrc/adam.cu), one launch over every group, elsewhere its
+plain twin. Every scalar of the update (counts, bias corrections, the
+scheduled rate) stays on the device, so a step never waits for the
+device. `train_step` updates the state's tensors in place and returns it.
 
 Every step kind (train_step, densify's, aux_opt's, the view batch's)
 renders in the span "render", takes `image_loss` and ends in
@@ -52,14 +40,11 @@ from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render_image
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
 from gaussian_splat_ipu_tpu_torch.train import losses
+from gaussian_splat_ipu_tpu_torch.train.adam import (LABELS, adam_direction,
+                                                     apply_param_updates)
 from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig)
-
-B1, B2 = 0.9, 0.999
-# The optimizer's parameter groups in sorted label order: the order of
-# optax's multi_transform state, and so of the checkpoint's leaves.
-LABELS = tuple(sorted(FIELDS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,41 +162,12 @@ def loss_fn(params: GaussianModel, camera: Camera, target: torch.Tensor,
     return image_loss(image, target, train_cfg)
 
 
-def means_lr(count: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
-    """optax.exponential_decay of the means rate at schedule count
-    `count` (a () i32 device tensor), as a () f32 device tensor."""
-    init = cfg.lr_means * cfg.scene_extent
-    end = cfg.lr_means_final * cfg.scene_extent
-    # Guarded ratio: lr_means == 0 (a frozen scene) must not divide by 0.
-    rate = cfg.lr_means_final / cfg.lr_means if cfg.lr_means > 0 else 1.0
-    count_f = count.to(torch.float32)
-    if cfg.lr_means_decay_steps <= 0 or rate == 0.0:
-        return torch.full_like(count_f, init)   # optax's constant schedule
-    decayed = torch.where(
-        count <= 0, torch.full_like(count_f, init),
-        init * torch.pow(torch.full_like(count_f, rate),
-                         count_f / cfg.lr_means_decay_steps))
-    return (torch.clamp_min if rate < 1.0 else torch.clamp_max)(decayed, end)
-
-
-def _adam_direction(grad: torch.Tensor, st: AdamState, eps: float):
-    """One optax scale_by_adam step: updates `st` in place, returns the
-    bias-corrected direction mu_hat / (sqrt(nu_hat) + eps)."""
-    st.count.add_(1)
-    st.mu.copy_((1.0 - B1) * grad + B1 * st.mu)
-    st.nu.copy_((1.0 - B2) * (grad * grad) + B2 * st.nu)
-    count_f = st.count.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.full_like(count_f, B1), count_f)
-    bc2 = 1.0 - torch.pow(torch.full_like(count_f, B2), count_f)
-    return (st.mu / bc1) / (torch.sqrt(st.nu / bc2) + eps)
-
-
 @torch.no_grad()
 def adam_apply(param: torch.Tensor, grad: torch.Tensor, st: AdamState,
                lr: float, eps: float = 1e-15) -> None:
     """optax.adam(lr, b1=0.9, b2=0.999, eps) + apply_updates on one tensor,
     in place (the pose and exposure optimizers)."""
-    param.copy_(param + _adam_direction(grad, st, eps) * -lr)
+    param.copy_(param + adam_direction(grad, st, eps) * -lr)
 
 
 def select_row(x: torch.Tensor, view_idx: torch.Tensor) -> torch.Tensor:
@@ -224,30 +180,6 @@ def init_adam(param: torch.Tensor) -> AdamState:
     """optax.adam's fresh state for `param`: count 0, zero moments."""
     return AdamState(torch.zeros((), dtype=torch.int32, device=param.device),
                      torch.zeros_like(param), torch.zeros_like(param))
-
-
-@torch.no_grad()
-def apply_param_updates(params: GaussianModel, grads: dict,
-                        opt_state: OptState, cfg: TrainConfig) -> None:
-    """Per-group Adam update + quaternion renormalisation, in place."""
-    lrs = {"log_scales": cfg.lr_log_scales, "quats": cfg.lr_quats,
-           "opacities": cfg.lr_opacities, "sh": cfg.lr_sh}
-    for label in LABELS:
-        p = getattr(params, label)
-        d = _adam_direction(grads[label], opt_state.adam[label],
-                            cfg.adam_eps)
-        if label == "means":
-            lr = means_lr(opt_state.means_lr_count, cfg)
-            opt_state.means_lr_count.add_(1)
-            update = -lr * d
-        else:
-            update = d * -lrs[label]
-        if label == "sh" and p.shape[1] > 1:
-            update[:, 1:] *= cfg.sh_rest_lr_scale
-        p.copy_(p + update)
-    q = params.quats
-    q.copy_(q / torch.clamp_min(
-        torch.linalg.vector_norm(q, dim=-1, keepdim=True), 1e-8))
 
 
 def gradient_step(state: TrainState, loss: torch.Tensor,

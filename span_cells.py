@@ -38,10 +38,11 @@ device time drifts while nothing synchronises), and the stamp kernel's
 device ms per item. Anchors are also taken where the window starts and
 around the traced stretch. Every line holds the median host ms of the
 harness's own spans in the window (enqueue, to_host, retire), recording
-on or off, and the run's launches of kernel G (projection) and of its
+on or off, the run's launches of kernel G (projection) and of its
 backward G-bwd beside its CUDA calls of the plain projection by reason
-(render/projection.py; in a captured program these move at warm-up and
-capture, not per replay). One
+(render/projection.py), and of the optimizer kernel H (train/adam.py;
+in a captured program these move at warm-up and capture, not per
+replay). One
 JSON line per run, then a summary per cell (the e2e medians off and on),
 then the card's name and power limit.
 """
@@ -276,7 +277,8 @@ def run_cell(cell, seed, seconds, trace, record, device):
                    project_launches=cuda_lib.launches["project_gaussians"],
                    project_bwd_launches=cuda_lib.launches[
                        "project_gaussians_bwd"],
-                   project_plain_calls=dict(projection.plain_calls))
+                   project_plain_calls=dict(projection.plain_calls),
+                   adam_launches=cuda_lib.launches["adam"])
         if record:
             if captured:
                 captured["items"] = traffic["profiled_frames"] \

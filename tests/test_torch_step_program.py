@@ -22,8 +22,8 @@ from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
 from gaussian_splat_ipu_tpu_torch.render.pipeline import render
 from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
 from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
-from gaussian_splat_ipu_tpu_torch.train import (aux_opt, densify, depth,
-                                                trainer)
+from gaussian_splat_ipu_tpu_torch.train import (adam, aux_opt, densify,
+                                                depth, trainer)
 from gaussian_splat_ipu_tpu_torch.utils.config import (RasterConfig,
                                                       RuntimeConfig)
 
@@ -183,7 +183,7 @@ def test_captured_step_matches_eager_steps():
         _, want = trainer.train_step(eager, cam, target, cfg, TC)
         torch.cuda.synchronize()
         _within("loss", loss[None], want[None])
-        for label in trainer.LABELS:
+        for label in adam.LABELS:
             a, b = state.opt_state.adam[label], eager.opt_state.adam[label]
             assert torch.equal(a.count, b.count)
             _within(f"{label} mu", a.mu, b.mu)

@@ -21,7 +21,7 @@ from gaussian_splat_ipu_tpu_torch.models.camera import Camera
 from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
                                                           GaussianModel)
 from gaussian_splat_ipu_tpu_torch.render import binning, pipeline
-from gaussian_splat_ipu_tpu_torch.train import losses, trainer
+from gaussian_splat_ipu_tpu_torch.train import adam, losses, trainer
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 from tests.test_torch_config import jax_config
 from tests.test_torch_binning import jax_splats, to_torch
@@ -162,7 +162,7 @@ def test_optimizer_updates_match_optax():
         assert a.dtype == np.asarray(b).dtype and a.shape == b.shape, i
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-7, rtol=1e-6,
                                    err_msg=f"leaf {i}")
-    lr = [float(trainer.means_lr(torch.tensor(c, dtype=torch.int32), tcfg))
+    lr = [float(adam.means_lr(torch.tensor(c, dtype=torch.int32), tcfg))
           for c in range(4)]
     assert lr[0] > lr[1] > lr[2] == lr[3]
 
