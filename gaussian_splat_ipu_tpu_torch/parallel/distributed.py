@@ -37,6 +37,18 @@ opacity reset run on the whole slot buffer as the reference's global
 surgery does (its :565-567), and `grow_capacity_sharded` pads each
 shard's slice with dead slots (:485-549).
 
+Spans and counters (utils/profiling.py; recorded only while spans are
+recorded), on the model's device: "shard.project" (projection of each
+local shard), "exchange" (packing, routing and the all_to_all or
+all_gather), "strip.bin", "strip.raster" (kernel C at the strip's tile
+offset), "gather" (the strip images gathered into the frame); under grad
+the backward's "gather.bwd", "strip.raster.bwd" (kernel D) and
+"exchange.bwd" (the inverse all_to_all and the routing gather's
+transpose); on a mesh held by one process the shards' "exchange.bwd"
+spans nest, each in the one begun before it. Counters: "exchange.rows_sent" (send
+rows that carry a splat), "exchange.bucket_rows" (send rows in all, pads
+too), "strip.pairs" (pairs each strip keeps).
+
 One deliberate difference: `truncated` counts the pairs past the per-range
 work bound max_chunks_per_range * chunk_size once per tile group, as the
 single-device render counts them (render/pipeline.py); the reference's
@@ -202,6 +214,9 @@ def _route_all_to_all(packed: torch.Tensor, dest_lo: torch.Tensor,
     else:
         send = torch.cat([packed, packed.new_zeros((1, nfeat))])[idx]
 
+    if profiling.active is not None:
+        profiling.count("exchange.rows_sent", keep.sum())
+        profiling.count("exchange.bucket_rows", p)
     demand = bounds[1:] - bounds[:-1]
     send_overflow = (torch.clamp_min(total - p, 0).to(I32)
                      + torch.clamp_min(demand - cap, 0).sum(dtype=I32))
@@ -266,47 +281,62 @@ def _render_group(group: ShardGroup, model: GaussianModel, camera: Camera,
     probes = (group.shard_slices(xy_probe) if xy_probe is not None
               else [None] * len(group.local))
     cams = {}
-    splats, packed, xovf = [], [], []
+    out = model.device
+    splats, xovf = [], []
     for i, j in enumerate(group.local):
         dev = group.devices[j]
         if dev not in cams:
             cams[dev] = camera.to(dev)
-        sp = project_gaussians(_ShardModel(*(f[i] for f in fields)),
-                               cams[dev], cfg, xy_probe=probes[i])
-        splats.append(sp)
-        packed.append(_pack_splats(sp))
-    if exchange == "all_to_all":
-        sends = []
-        for sp, pk in zip(splats, packed):
-            dest_lo, span = _dest_strip_span(sp, cfg, rows)
-            send, ovf = _route_all_to_all(pk, dest_lo, span, d, cap)
-            sends.append(send)
-            xovf.append(ovf)
-        routed = group.all_to_all(sends)
-    elif exchange == "all_gather":
-        routed = group.all_gather(packed)
-        xovf = [torch.zeros((), dtype=I32, device=pk.device)
-                for pk in packed]
-    else:
-        raise ValueError(f"exchange {exchange!r}: expected one of "
-                         f"{EXCHANGES}")
+        with profiling.span("shard.project", out):
+            splats.append(project_gaussians(
+                _ShardModel(*(f[i] for f in fields)), cams[dev], cfg,
+                xy_probe=probes[i]))
+    with profiling.span("exchange", out):
+        packed = [profiling.backward_ends(_pack_splats(sp), "exchange.bwd")
+                  for sp in splats]
+        if exchange == "all_to_all":
+            sends = []
+            for sp, pk in zip(splats, packed):
+                dest_lo, span = _dest_strip_span(sp, cfg, rows)
+                send, ovf = _route_all_to_all(pk, dest_lo, span, d, cap)
+                sends.append(send)
+                xovf.append(ovf)
+            routed = group.all_to_all(sends)
+        elif exchange == "all_gather":
+            routed = group.all_gather(packed)
+            xovf = [torch.zeros((), dtype=I32, device=pk.device)
+                    for pk in packed]
+        else:
+            raise ValueError(f"exchange {exchange!r}: expected one of "
+                             f"{EXCHANGES}")
+        routed = [profiling.backward_begins(r, "exchange.bwd")
+                  for r in routed]
     tiles, counts, ovf, npairs, trunc = [], [], [], [], []
     for j, recv in zip(group.local, routed):
         row_lo = j * rows
-        binned = binning.bin_splats(_unpack_splats(recv), cfg, row_lo, rows,
-                                    pair_capacity)
-        tiles.append(rasterize.rasterize_tiles(binned, cfg,
-                                               row_lo * cfg.tiles_x))
+        with profiling.span("strip.bin", out):
+            binned = binning.bin_splats(_unpack_splats(recv), cfg, row_lo,
+                                        rows, pair_capacity)
+        binned = binned._replace(features=profiling.backward_ends(
+            binned.features, "strip.raster.bwd"))
+        with profiling.span("strip.raster", out):
+            strip = rasterize.rasterize_tiles(binned, cfg,
+                                              row_lo * cfg.tiles_x)
+        strip = profiling.backward_begins(strip, "strip.raster.bwd")
+        tiles.append(profiling.backward_ends(strip, "gather.bwd"))
+        profiling.count("strip.pairs", binned.num_pairs)
         cnt = binned.tile_ends - binned.tile_starts
         counts.append(cnt)
         ovf.append(binned.overflow)
         npairs.append(binned.num_pairs)
         trunc.append(pipeline.truncated_pairs(cnt, cfg, row_lo))
-    out = model.device
     # The frustum mask of the rows this process holds (all of them on a
     # one-process mesh): the rows its densify statistics accumulate over.
     visible = torch.cat([(sp.radius[:, 0] > 0.0).to(out) for sp in splats])
-    return (group.gather(tiles, out), group.gather(counts, out),
+    with profiling.span("gather", out):
+        frame = profiling.backward_begins(group.gather(tiles, out),
+                                          "gather.bwd")
+    return (frame, group.gather(counts, out),
             group.psum(ovf).to(out), group.psum(npairs).to(out), visible,
             group.psum(trunc).to(out), group.psum(xovf).to(out))
 
@@ -410,14 +440,38 @@ def render_views_sharded(model: GaussianModel, cameras: Sequence[Camera],
 def make_sharded_train_step(mesh: Mesh, raster_cfg: RasterConfig,
                             train_cfg: trainer.TrainConfig,
                             axis: str = SHARD_AXIS,
-                            pair_capacity: int | None = None):
+                            pair_capacity: int | None = None,
+                            with_stats: bool = False):
     """step(state, camera, target) -> (state, loss): trainer.train_step
     with the sharded render, updating the state in place. The gradients of
-    the exchange land on the owning shards' parameter slices."""
-    return functools.partial(
-        trainer.train_step, raster_cfg=raster_cfg, train_cfg=train_cfg,
-        image_fn=functools.partial(render_image_sharded, mesh=mesh,
-                                   axis=axis, pair_capacity=pair_capacity))
+    the exchange land on the owning shards' parameter slices. with_stats:
+    (state, (loss, stats)), stats the frame's (3,) i32 drop counters
+    summed over the shards (exchange_overflow, overflow, truncated), as
+    make_view_batch_train_step's: dropped rows corrupt gradients, so the
+    caller checks them."""
+    if not with_stats:
+        return functools.partial(
+            trainer.train_step, raster_cfg=raster_cfg, train_cfg=train_cfg,
+            image_fn=functools.partial(render_image_sharded, mesh=mesh,
+                                       axis=axis,
+                                       pair_capacity=pair_capacity))
+
+    def step(state: trainer.TrainState, camera: Camera,
+             target: torch.Tensor):
+        stats = []
+
+        def image_fn(params, cam, cfg):
+            out = render_sharded(params, cam, cfg, mesh, axis,
+                                 pair_capacity)
+            stats.append(torch.stack([out.exchange_overflow, out.overflow,
+                                      out.truncated]))
+            return out.image
+
+        state, loss = trainer.train_step(state, camera, target, raster_cfg,
+                                         train_cfg, image_fn=image_fn)
+        return state, (loss, stats[0])
+
+    return step
 
 
 def make_view_batch_train_step(mesh: Mesh, raster_cfg: RasterConfig,

@@ -5,7 +5,11 @@ interface (csrc/*.cuh are headers they include). At first use each source
 is compiled by its own nvcc process for sm_90a, all started together, and
 the objects are linked into one shared library, cached under
 gaussian_splat_ipu_tpu_torch/_build/<hash>/ (the hash covers the sources,
-the headers and the flags) and loaded with ctypes. Nothing is
+the headers and the flags) and loaded with ctypes. Processes that share
+the checkout (the ranks of a multi-process run) build it once: the build
+holds an exclusive lock on the hash directory's `lock` file, and a
+process that waited for it loads what the holder built. The lock is an
+flock, released when its holder exits however it exits. Nothing is
 built or imported when this module is imported.
 
 Every C entry launches on the stream it is given and returns
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -95,6 +100,7 @@ class BuildInfo:
     """What the first library() call in this process did."""
 
     seconds: float | None = None   # nvcc wall time; 0.0 when cached
+    wait_s: float = 0.0            # time spent waiting for another build
     path: str | None = None
     log: str = ""
 
@@ -120,6 +126,17 @@ def _nvcc() -> str:
     return path
 
 
+def _cached(out_dir: str, lib_path: str) -> bool:
+    if not os.path.isfile(lib_path):
+        return False
+    BuildInfo.seconds = 0.0
+    log = os.path.join(out_dir, "build.log")
+    if os.path.isfile(log):
+        with open(log) as f:
+            BuildInfo.log = f.read()
+    return True
+
+
 def _build() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources() + _headers():
@@ -128,14 +145,20 @@ def _build() -> str:
     out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
     lib_path = os.path.join(out_dir, LIB_NAME)
     BuildInfo.path = lib_path
-    if os.path.isfile(lib_path):
-        BuildInfo.seconds = 0.0
-        log = os.path.join(out_dir, "build.log")
-        if os.path.isfile(log):
-            with open(log) as f:
-                BuildInfo.log = f.read()
+    if _cached(out_dir, lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        t0 = time.perf_counter()
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        BuildInfo.wait_s = time.perf_counter() - t0
+        if not _cached(out_dir, lib_path):
+            _compile(out_dir, lib_path)
+    return lib_path
+
+
+def _compile(out_dir: str, lib_path: str) -> None:
+    """nvcc each source, link, and move the library into place."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
@@ -168,8 +191,7 @@ def _build() -> str:
                                + BuildInfo.log)
         with open(os.path.join(out_dir, "build.log"), "w") as f:
             f.write(BuildInfo.log)
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half
-    return lib_path
+        os.replace(tmp, lib_path)  # atomic: a loader never sees half
 
 
 def library() -> ctypes.CDLL:

@@ -48,9 +48,20 @@ as an autograd node on the forward's stream and ends the device span
 (trainer.train_step: "loss.bwd" from the start of "backward" to the
 gradient reaching the rendered image).
 
+backward_begins(y, name) and backward_ends(x, name) place a device span
+inside a backward pass: identity autograd Functions whose backward stamps
+the span's start where y's gradient arrives and its end where x's does
+(x upstream of y: parallel/distributed.py's "exchange.bwd" runs from the
+received splats' gradient to the sent ones').
+
+count(name, value) adds to the recorder's counter `name`: a number at
+once, a device tensor on its device, read back once by summary(). Calls
+inside a CUDA-graph capture are not counted.
+
 Recording is off unless start() was called: span() then returns a shared
-no-op context, mark() returns its input, nothing is stamped and
-runtime/engine.py's run checks one module attribute (`active`).
+no-op context, mark() and the backward stamps return their input, count()
+does nothing, nothing is stamped and runtime/engine.py's run checks one
+module attribute (`active`).
 """
 
 from __future__ import annotations
@@ -225,6 +236,7 @@ class SpanRecorder:
         self.clock = clock
         self.spans: List[Span] = []
         self.counters: collections.Counter = collections.Counter()
+        self.device_counters: Dict[str, torch.Tensor] = {}
         self.items = 0            # engine runs numbered so far
         self.entries = 0          # log entries read
         self.overflow = 0         # stamps past the capacity
@@ -466,7 +478,10 @@ class SpanRecorder:
         seconds) or loaded (0.0)."""
         replays = sum(v for k, v in self.counters.items()
                       if k.startswith("replays."))
-        return dict(self.counters, items=self.items,
+        counted = collections.Counter(self.counters)
+        for name, acc in self.device_counters.items():
+            counted[name] += int(acc)
+        return dict(counted, items=self.items,
                     copy_in_bytes_per_replay=(
                         self.counters["copy_in_bytes"] / replays
                         if replays else None),
@@ -533,6 +548,57 @@ def mark(x: torch.Tensor, name: str) -> torch.Tensor:
         rec.stamp(name, MARK_FWD)
         return x
     return _Mark.apply(x, rec, name)
+
+
+class _BackwardStamp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rec, name, kind):
+        ctx.rec, ctx.name, ctx.kind = rec, name, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.rec.stamp(ctx.name, ctx.kind)
+        return grad, None, None, None
+
+
+def _backward_stamp(x: torch.Tensor, name: str, kind: int) -> torch.Tensor:
+    rec = active
+    if (rec is None or not rec.takes(name) or not rec.logs(x.device)
+            or not (torch.is_grad_enabled() and x.requires_grad)):
+        return x
+    return _BackwardStamp.apply(x, rec, name, kind)
+
+
+def backward_begins(y: torch.Tensor, name: str) -> torch.Tensor:
+    """y itself; where its gradient arrives, the device span `name`
+    begins (module docstring)."""
+    return _backward_stamp(y, name, BEGIN)
+
+
+def backward_ends(x: torch.Tensor, name: str) -> torch.Tensor:
+    """x itself; where its gradient arrives, the device span `name`
+    ends (module docstring)."""
+    return _backward_stamp(x, name, END)
+
+
+def count(name: str, value) -> None:
+    """Add `value` (a number, or a one-element tensor added on its device
+    without a read-back) to the recorder's counter `name`, while spans are
+    recorded and no CUDA graph is being captured."""
+    rec = active
+    if rec is None:
+        return
+    if not isinstance(value, torch.Tensor):
+        rec.counters[name] += value
+        return
+    if value.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    acc = rec.device_counters.get(name)
+    if acc is None:
+        rec.device_counters[name] = value.detach().to(torch.int64).clone()
+    else:
+        acc.add_(value.detach().to(device=acc.device))
 
 
 def clear() -> None:

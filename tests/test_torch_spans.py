@@ -46,6 +46,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = RasterConfig(image_width=48, image_height=32, tile_width=16,
                    tile_height=16, chunk_size=32, pair_capacity=1 << 12)
 FRAME = ["project", "bin", "raster", "untile"]
+# The sharded render of one view on a mesh of 2 shards held by one process
+# (parallel/distributed.py), and its backward's spans: the shards'
+# "exchange.bwd" spans nest on such a mesh.
+SHARDED_FRAME = ["shard.project", "shard.project", "exchange", "strip.bin",
+                 "strip.raster", "strip.bin", "strip.raster", "gather"]
+SHARDED_BWD = ["gather.bwd", "strip.raster.bwd", "strip.raster.bwd",
+               "exchange.bwd", "exchange.bwd"]
 
 
 class FakeClock:
@@ -197,7 +204,8 @@ STEP_KINDS = ["fit", "densify", "densify-depth", "aux", "view-batch"]
 def _step_case(kind):
     """A train step of each kind on the CPU, its scene and targets made
     before recording starts: (register(engine), program name, the run's
-    arguments, the spans its render records inside "render")."""
+    arguments, the spans its render records inside "render", and those
+    its backward records after "loss.bwd")."""
     model, cam = _scene()
     with torch.no_grad():
         target = pipeline.render(_scene(seed=1)[0], cam, CFG).image
@@ -209,7 +217,7 @@ def _step_case(kind):
         state = trainer.init_state(model.trainable())
         return (lambda eng: trainer.register_step(eng, state, cam, target,
                                                   CFG, tc),
-                trainer.STEP_PROGRAM, (state, cam, target), FRAME)
+                trainer.STEP_PROGRAM, (state, cam, target), FRAME, [])
     if kind.startswith("densify"):
         state = trainer.init_state(densify.pad_model(model, 128).trainable())
         d = densify.init_state(model.num_gaussians, 128, device="cpu")
@@ -218,16 +226,16 @@ def _step_case(kind):
         return (lambda eng: densify.register_step(
             eng, state, d, cam, target, CFG, tc, dw, vi, obs_all, mask_all),
             densify.STEP_PROGRAM, (state, d.grad_sum, d.vis_count, *view),
-            FRAME)
+            FRAME, [])
     if kind == "aux":
         state = trainer.init_state(model.trainable())
         aux = aux_opt.init_aux_state(1, 1e-3, 1e-2, device="cpu")
         return (lambda eng: aux_opt.register_step(
             eng, state, aux, vi, cam, target, obs_all, mask_all, CFG, tc,
             1e-3, 1e-2, 0.1), aux_opt.STEP_PROGRAM,
-            (state, aux, vi, cam, target, obs_all, mask_all), FRAME)
+            (state, aux, vi, cam, target, obs_all, mask_all), FRAME, [])
     # Two views on a (2 view groups, 2 shards) CPU mesh, one tile row a
-    # shard; the sharded render records no frame spans of its own.
+    # shard; the sharded render records its shards' spans.
     msh = mesh_lib.make_mesh_2d(2, 2, device="cpu")
     state = trainer.init_state(mesh_lib.shard_model(model, msh).trainable())
     cams = (cam, Camera.orbit(-np.ones(3), np.ones(3), 0.8, 48 / 32,
@@ -238,15 +246,16 @@ def _step_case(kind):
     step = distributed.make_view_batch_train_step(msh, CFG, tc)
     return (lambda eng: trainer.register_view_step(
         eng, "view_batch_step", step, lambda _, c, t: (state, c, t), cams,
-        targets), "view_batch_step", (state, cams, targets), [])
+        targets), "view_batch_step", (state, cams, targets),
+        SHARDED_FRAME * 2, SHARDED_BWD * 2)
 
 
 @pytest.mark.parametrize("kind", STEP_KINDS)
 def test_train_step_spans_in_order_with_the_marks_backward(recording, kind):
     """Every step kind records the same spans around its own render:
     "render", the image's "loss" mark and span, "backward" with "loss.bwd"
-    inside, "adam"."""
-    register, name, args, inner = _step_case(kind)
+    inside (and the sharded render's backward spans after it), "adam"."""
+    register, name, args, inner, inner_bwd = _step_case(kind)
     rec = recording("cpu")
     eng = RenderEngine(RuntimeConfig(device="cpu"))
     register(eng)
@@ -254,7 +263,8 @@ def test_train_step_spans_in_order_with_the_marks_backward(recording, kind):
     assert eng.last_item == 0
     dev = _by_track(rec.collect(), "device")
     assert _names(dev) == ["engine.run", "render", *inner, "loss.fwd",
-                           "loss", "backward", "loss.bwd", "adam"]
+                           "loss", "backward", "loss.bwd", *inner_bwd,
+                           "adam"]
     idx = {s.name: rec.spans.index(s) for s in dev}
     parent = {s.name: s.parent for s in dev}
     assert parent["render"] == parent["loss"] == parent["backward"] \
@@ -267,10 +277,19 @@ def test_train_step_spans_in_order_with_the_marks_backward(recording, kind):
     # loss.bwd runs from backward's start to the gradient reaching the
     # image: it ended inside backward.
     assert lbwd.start_ns == bwd.start_ns < lbwd.end_ns < bwd.end_ns
+    assert all(lbwd.end_ns <= s.start_ns <= s.end_ns <= bwd.end_ns
+               for s in dev if s.name in inner_bwd)
     assert spans["loss.fwd"].start_ns == spans["loss.fwd"].end_ns
     host = _by_track(rec.spans, "host")
     assert _names(host)[:2] == ["engine.register", "engine.run"]
-    assert rec.summary()["items"] == 1
+    summary = rec.summary()
+    assert summary["items"] == 1
+    if inner_bwd:
+        # 2 views x 2 shards x 2 destinations of 128-row buckets.
+        assert summary["exchange.bucket_rows"] == 2 * 2 * 2 * 128
+        assert 0 < summary["exchange.rows_sent"] \
+            <= summary["exchange.bucket_rows"]
+        assert summary["strip.pairs"] > 0
 
 
 def _has_mark_node(t):
