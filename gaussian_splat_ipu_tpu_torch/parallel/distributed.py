@@ -8,26 +8,36 @@ The design is the reference's, one mesh axis in two roles:
   2. The exchange is a per-destination all_to_all of compact projected
      splats (12 f32 each: position, depth, conic, colour, opacity, radius):
      each shard routes every splat it projected only to the shards whose
-     framebuffer row strips the splat's footprint touches, through
-     fixed-capacity per-destination buckets, and counts the rows a bucket
-     could not take (`exchange_overflow`). The received rows are in global
-     gaussian order, so the stable pair sort gives every tile the
-     single-device pair order and the frame equals the single-device one.
-     The autograd transpose of the routing gather and the all_to_all is
-     the inverse all_to_all and an index-add, so splat gradients land on
-     the owning shard. `exchange="all_gather"` replicates every splat
-     instead.
+     framebuffer row strips the splat's footprint touches, at most `cap`
+     rows per destination bucket, and counts the rows a bucket could not
+     take (`exchange_overflow`). The received rows are in global gaussian
+     order, so the stable pair sort gives every tile the single-device
+     pair order and the frame equals the single-device one. The autograd
+     transpose of the routing gather and the all_to_all is the inverse
+     all_to_all and an index-add, so splat gradients land on the owning
+     shard. `exchange="all_gather"` replicates every splat instead.
   3. Rasterization is spatially parallel over tile rows: shard j bins only
      its own strip (render/binning.py row_lo / num_rows) and composites it
      with kernel C at the strip's tile offset (kernel D under grad).
 
 The shard body is written once over the mesh's shard group and calls only
-its collectives (mesh.ShardGroup: all_to_all, all_gather, psum, gather),
-which on a one-device mesh are index, reshape and cat operations on one
-stream: the whole sharded frame, or train step, can then be captured as
-one CUDA graph (runtime/engine.py), as the single-device ones are. Nothing
-here reads a value back to the host: bucket sizes are fixed and the
-bucket bounds come from a device searchsorted.
+its collectives (mesh.ShardGroup: all_to_all, all_gather, psum, gather).
+The group's type decides how the buckets are sized:
+
+  - On a mesh held by one process (mesh.ShardGroup) the collectives are
+    index, reshape and cat operations on one stream, and every bucket is
+    `cap` rows long, pads included: nothing here reads a value back to the
+    host (the bucket bounds come from a device searchsorted), so the whole
+    sharded frame, or train step, can be captured as one CUDA graph
+    (runtime/engine.py), as the single-device ones are.
+  - On a process mesh (multihost.ProcessShardGroup) each bucket holds
+    exactly its rows. The ranks exchange their per-destination demands (D
+    counts each) and read the (D, D) matrix back to the host once a
+    forward, inside the "exchange" span; the all_to_all then sends parts of
+    those sizes and its backward returns the same sizes without a second
+    read. A process mesh's programs run eagerly (collectives across
+    processes are not captured), so the read costs a drain of the stream,
+    not a capture; the strips then bin only rows that carry a splat.
 
 Training (make_sharded_train_step, make_view_batch_train_step,
 make_sharded_densify_train_step) differentiates these renders. On a mesh
@@ -39,15 +49,17 @@ shard's slice with dead slots (:485-549).
 
 Spans and counters (utils/profiling.py; recorded only while spans are
 recorded), on the model's device: "shard.project" (projection of each
-local shard), "exchange" (packing, routing and the all_to_all or
-all_gather), "strip.bin", "strip.raster" (kernel C at the strip's tile
-offset), "gather" (the strip images gathered into the frame); under grad
+local shard), "exchange" (packing, routing, the demand read on a
+process mesh, and the all_to_all or all_gather), "strip.bin",
+"strip.raster" (kernel C at the strip's tile offset), "gather" (the strip
+images gathered into the frame); under grad
 the backward's "gather.bwd", "strip.raster.bwd" (kernel D) and
 "exchange.bwd" (the inverse all_to_all and the routing gather's
 transpose); on a mesh held by one process the shards' "exchange.bwd"
 spans nest, each in the one begun before it. Counters: "exchange.rows_sent" (send
 rows that carry a splat), "exchange.bucket_rows" (send rows in all, pads
-too), "strip.pairs" (pairs each strip keeps).
+too: equal to rows_sent on a process mesh), "exchange.recv_rows" (rows
+each strip receives and bins), "strip.pairs" (pairs each strip keeps).
 
 One deliberate difference: `truncated` counts the pairs past the per-range
 work bound max_chunks_per_range * chunk_size once per tile group, as the
@@ -98,14 +110,20 @@ class ShardedRenderOutput(NamedTuple):
 
 # -- packed projected-splat wire format ------------------------------------
 
+def _splat_columns(sp: ProjectedSplats) -> List[torch.Tensor]:
+    """The wire rows' columns, (n, k) each, 12 in all. The radius rides
+    detached: binning reads it only as integer footprints, so it has no
+    gradient on the single-device path either, and a zero cotangent sent
+    back through its torch.where would turn the infinite extents of culled
+    slots into NaN gradients (the reference's sharded step writes NaN into
+    dead slots so)."""
+    return [sp.xy, sp.depth[:, None], sp.conic, sp.color,
+            sp.opacity[:, None], sp.radius.detach()]
+
+
 def _pack_splats(sp: ProjectedSplats) -> torch.Tensor:
-    """(n, 12) wire rows. The radius rides detached: binning reads it only
-    as integer footprints, so it has no gradient on the single-device
-    path either, and a zero cotangent sent back through its torch.where
-    would turn the infinite extents of culled slots into NaN gradients
-    (the reference's sharded step writes NaN into dead slots so)."""
-    return torch.cat([sp.xy, sp.depth[:, None], sp.conic, sp.color,
-                      sp.opacity[:, None], sp.radius.detach()], dim=-1)
+    """(n, 12) wire rows."""
+    return torch.cat(_splat_columns(sp), dim=-1)
 
 
 def _unpack_splats(f: torch.Tensor) -> ProjectedSplats:
@@ -165,35 +183,79 @@ class _RouteGather(torch.autograd.Function):
         return dpacked, None, None, None, None, None
 
 
+class _DemandGather(torch.autograd.Function):
+    """send = cat(cols, 1)[idx], the rows of the live (splat, destination)
+    pairs only (buckets sized by the demand); differentiable in the
+    columns. The transpose is _RouteGather's sum, in the same order, over
+    pairs instead of splats: src[r] is send row r's pair slot, so the
+    cotangents are copied into pair order (a dropped pair's stays zero);
+    a splat's pairs are consecutive there, count[s] of them from slot s on,
+    so its sum is d shifted adds at its first pair, whose row target[s]
+    names (the other pairs' target is a row dropped after). No row
+    gathers: on the H100 a gather of 48-byte rows is 20x one of 8- or
+    12-byte columns."""
+
+    @staticmethod
+    def forward(ctx, idx, src, count, target, d, *cols):
+        ctx.save_for_backward(src, count, target)
+        ctx.d, ctx.rows = d, cols[0].shape[0]
+        ctx.widths = [c.shape[1] for c in cols]
+        return torch.cat([c[idx] for c in cols], dim=1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsend):
+        src, count, target = ctx.saved_tensors
+        total, nfeat = count.shape[0], dsend.shape[1]
+        dpair = dsend.new_zeros((total + ctx.d, nfeat)).index_copy_(
+            0, src, dsend)
+        acc = dsend.new_zeros((total, nfeat))
+        for k in range(ctx.d):
+            acc = acc + torch.where((k < count)[:, None],
+                                    dpair[k:k + total], 0.0)
+        dcols = acc.new_zeros((ctx.rows + 1, nfeat)).index_put_(
+            (target,), acc)[:ctx.rows]
+        return (None,) * 5 + tuple(dcols.split(ctx.widths, dim=1))
+
+
+def _pair_slots(span: torch.Tensor, total):
+    """The (splat, destination) pairs of one shard in gaussian order,
+    destinations ascending within a splat: (offsets (nloc,) i64 each
+    splat's first pair, slot (total,) i64, gid (total,) i64 each pair's
+    splat, its offset into the splat's span). Slot s belongs to the
+    rightmost splat whose first slot is at or before it (splats of span 0
+    share their successor's offset), found by a binary search, as kernel B
+    finds a pair's gaussian. The reference forward-fills a scatter with
+    cummax instead; torch.cummax takes 2.5 ms a 2^20-slot pass on the
+    H100. `span` may end in a sentinel whose offset every slot past the
+    live pairs finds."""
+    ends_cum = torch.cumsum(span.to(torch.int64), 0)
+    offsets = ends_cum - span
+    slot = torch.arange(total, device=span.device)
+    gid = torch.searchsorted(offsets, slot, right=True) - 1
+    return offsets, slot, gid, slot - offsets[gid]
+
+
 def _route_all_to_all(packed: torch.Tensor, dest_lo: torch.Tensor,
                       span: torch.Tensor, d: int, cap: int):
-    """Bucket one shard's splat rows by destination: (send (d * cap, F),
-    send_overflow () i32). Bucket j holds, in gaussian order, the rows
-    bound for shard j, up to cap of them; rows past a bucket's cap (or past
-    the d * cap expansion table) are dropped and counted. The row gather
-    is differentiable in `packed` (_RouteGather); the routing is
-    integer-only. The scatter writes distinct slots (dropped entries go to
+    """Bucket one shard's splat rows by destination into fixed buckets:
+    (send (d * cap, F), send_overflow () i32). Bucket j holds, in gaussian
+    order, the rows bound for shard j, up to cap of them, then zero pad
+    rows; rows past a bucket's cap (or past the d * cap expansion table)
+    are dropped and counted. The row gather is differentiable in `packed`
+    (_RouteGather); the routing is integer-only and reads nothing back to
+    the host. The scatter writes distinct slots (dropped entries go to
     slots past the table, one each): on the card, entries that all hit one
     slot serialise."""
     nloc, nfeat = packed.shape
     dev = packed.device
     p = d * cap
-    # (splat, destination) pairs in gaussian order, destinations ascending
-    # within one. Slot s belongs to the rightmost splat whose first slot
-    # is at or before it (splats of span 0 share their successor's offset;
-    # slots past the live total belong to the sentinel nloc), found by a
-    # binary search, as kernel B finds a pair's gaussian. The reference
-    # forward-fills a scatter with cummax instead; torch.cummax takes 2.5
-    # ms a 2^20-slot pass on the H100.
     span_ext = torch.cat([span, span.new_full((1,), p)])
-    ends_cum = torch.cumsum(span_ext.to(torch.int64), 0)
-    offsets_ext = ends_cum - span_ext
-    total = ends_cum[-2]
-    slot = torch.arange(p, device=dev)
-    gid = torch.searchsorted(offsets_ext, slot, right=True) - 1
+    offsets_ext, slot, gid, within = _pair_slots(span_ext, p)
+    total = offsets_ext[-1]
     is_pad = gid >= nloc
     dest_ext = torch.cat([dest_lo, dest_lo.new_full((1,), d)])
-    dest = torch.where(is_pad, d, dest_ext[gid] + (slot - offsets_ext[gid]))
+    dest = torch.where(is_pad, d, dest_ext[gid] + within)
 
     # A stable sort by destination keeps gaussian order within a bucket;
     # a pair's rank in its bucket counts from the bucket's first pair.
@@ -221,6 +283,76 @@ def _route_all_to_all(packed: torch.Tensor, dest_lo: torch.Tensor,
     send_overflow = (torch.clamp_min(total - p, 0).to(I32)
                      + torch.clamp_min(demand - cap, 0).sum(dtype=I32))
     return send, send_overflow
+
+
+def _bucket_demand(dest_lo: torch.Tensor, span: torch.Tensor,
+                   d: int) -> torch.Tensor:
+    """(d,) i64: the rows one shard would send each destination shard, on
+    the device (a splat counts once in each strip its footprint touches)."""
+    j = torch.arange(d, dtype=dest_lo.dtype, device=dest_lo.device)
+    hit = (dest_lo[:, None] <= j) & (j < (dest_lo + span)[:, None])
+    return hit.sum(0, dtype=torch.int64)
+
+
+def _route_by_demand(cols: Sequence[torch.Tensor], dest_lo: torch.Tensor,
+                     span: torch.Tensor, demand: torch.Tensor,
+                     demand_host: Sequence[int], cap: int) -> torch.Tensor:
+    """Bucket one shard's splat rows (the columns `cols`, _splat_columns)
+    by destination, each bucket exactly as long as the rows it keeps: send
+    (sum(min(demand_j, cap)), F). Bucket j holds, in gaussian order, the
+    first min(demand_j, cap) rows bound for shard j; the rest are dropped
+    (the caller counts them). demand: the shard's _bucket_demand on the
+    device; demand_host: the same counts on the host, which size the
+    table: it holds the live pairs only, and only their rows are packed.
+    The row gather is differentiable in the columns (_DemandGather)."""
+    d = len(demand_host)
+    total = sum(demand_host)
+    p = sum(min(m, cap) for m in demand_host)
+    _, slot, gid, within = _pair_slots(span, total)
+    dest_s, perm = torch.sort((dest_lo[gid] + within).to(I32), stable=True)
+    dest_s = dest_s.to(torch.int64)
+    # A pair's rank in its bucket counts from the bucket's first pair; the
+    # kept ones go to the bucket's start in the send buffer.
+    first = torch.cumsum(demand, 0) - demand
+    sizes = torch.clamp_max(demand, cap)
+    start = torch.cumsum(sizes, 0) - sizes
+    lrank = slot - first[dest_s]
+    row = torch.where(lrank < cap, start[dest_s] + lrank, p + slot)
+    # Send row r holds pair src[r]; the dropped pairs' rows lie past p.
+    src = torch.empty(p + total, dtype=torch.int64, device=span.device
+                      ).scatter_(0, row, perm)[:p]
+    idx = gid[src]
+    if not (torch.is_grad_enabled()
+            and any(c.requires_grad for c in cols)):
+        return torch.cat([c[idx] for c in cols], dim=1)
+    # The transpose runs over the pairs, not the shard's splats: a splat's
+    # first pair gathers its cotangents.
+    target = torch.where(within == 0, gid, span.shape[0])
+    return _DemandGather.apply(idx, src, span[gid] - within, target, d,
+                               *cols)
+
+
+def _exchange_by_demand(group, sp: ProjectedSplats, cfg: RasterConfig,
+                        rows: int, cap: int):
+    """The all_to_all exchange of a process mesh (one shard a process,
+    multihost.ProcessShardGroup), each bucket exactly as long as the rows
+    it keeps: (the rows this process's strip receives, in source-shard
+    order and gaussian order within a source; its send overflow () i32).
+    The ranks' demands are read back to the host here, once a forward."""
+    d, me = group.size, group.rank
+    dest_lo, span = _dest_strip_span(sp, cfg, rows)
+    demand = _bucket_demand(dest_lo, span, d)
+    matrix = group.demand_matrix(demand)
+    cols = _splat_columns(sp)
+    # The columns' gradients all arrive in one backward call.
+    cols[0] = profiling.backward_ends(cols[0], "exchange.bwd")
+    send = _route_by_demand(cols, dest_lo, span, demand, matrix[me], cap)
+    if profiling.active is not None:
+        profiling.count("exchange.rows_sent", send.shape[0])
+        profiling.count("exchange.bucket_rows", send.shape[0])
+    (recv,) = group.all_to_all([send], [min(m, cap) for m in matrix[me]],
+                               [min(row[me], cap) for row in matrix])
+    return recv, torch.clamp_min(demand - cap, 0).sum(dtype=I32)
 
 
 def _exchange_capacity(nloc: int, d: int,
@@ -291,29 +423,36 @@ def _render_group(group: ShardGroup, model: GaussianModel, camera: Camera,
             splats.append(project_gaussians(
                 _ShardModel(*(f[i] for f in fields)), cams[dev], cfg,
                 xy_probe=probes[i]))
+    if exchange not in EXCHANGES:
+        raise ValueError(f"exchange {exchange!r}: expected one of "
+                         f"{EXCHANGES}")
     with profiling.span("exchange", out):
-        packed = [profiling.backward_ends(_pack_splats(sp), "exchange.bwd")
-                  for sp in splats]
-        if exchange == "all_to_all":
+        if exchange == "all_gather":
+            packed = [profiling.backward_ends(_pack_splats(sp),
+                                              "exchange.bwd")
+                      for sp in splats]
+            routed = group.all_gather(packed)
+            xovf = [torch.zeros((), dtype=I32, device=pk.device)
+                    for pk in packed]
+        elif isinstance(group, ShardGroup):
             sends = []
-            for sp, pk in zip(splats, packed):
+            for sp in splats:
+                pk = profiling.backward_ends(_pack_splats(sp), "exchange.bwd")
                 dest_lo, span = _dest_strip_span(sp, cfg, rows)
                 send, ovf = _route_all_to_all(pk, dest_lo, span, d, cap)
                 sends.append(send)
                 xovf.append(ovf)
             routed = group.all_to_all(sends)
-        elif exchange == "all_gather":
-            routed = group.all_gather(packed)
-            xovf = [torch.zeros((), dtype=I32, device=pk.device)
-                    for pk in packed]
         else:
-            raise ValueError(f"exchange {exchange!r}: expected one of "
-                             f"{EXCHANGES}")
+            (sp,) = splats
+            recv, ovf = _exchange_by_demand(group, sp, cfg, rows, cap)
+            routed, xovf = [recv], [ovf]
         routed = [profiling.backward_begins(r, "exchange.bwd")
                   for r in routed]
     tiles, counts, ovf, npairs, trunc = [], [], [], [], []
     for j, recv in zip(group.local, routed):
         row_lo = j * rows
+        profiling.count("exchange.recv_rows", recv.shape[0])
         with profiling.span("strip.bin", out):
             binned = binning.bin_splats(_unpack_splats(recv), cfg, row_lo,
                                         rows, pair_capacity)

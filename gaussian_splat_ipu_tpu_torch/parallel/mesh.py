@@ -25,8 +25,11 @@ one device they are index, reshape and cat operations, across devices
 `.to(device)` peer copies. The autograd transpose of each is the
 reference's: all_to_all's is the inverse all_to_all, all_gather's the
 reduce-scatter, so gradients land on the owning shard's slice.
-parallel/distributed.py calls only these, so a backend with one shard per
-process (parallel/multihost.py) plugs in without touching it.
+parallel/distributed.py calls only these. The backend with one shard per
+process (parallel/multihost.py) gives the same collectives, and an
+all_to_all whose parts are sized from the demands it reads back to the
+host; this one's buckets are fixed, so nothing reads back and a sharded
+program captures as one CUDA graph.
 """
 
 from __future__ import annotations

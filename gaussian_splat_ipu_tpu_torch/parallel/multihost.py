@@ -26,7 +26,12 @@ gather's backward therefore keeps this process's rows of the cotangent
 instead of summing every process's copy (`_GatherReplicated`), so a
 gradient is not counted once per process. Collectives cannot be captured
 by a CUDA graph on one device: programs over a process mesh run eagerly
-(RenderEngine.register(eager=)).
+(RenderEngine.register(eager=)). So the exchange may read the host's
+copy of a value once a forward, and does: the ranks' per-destination row
+demands (`ProcessShardGroup.demand_matrix`), which size the all_to_all's
+parts exactly (`ProcessShardGroup.all_to_all`), where the in-process mesh
+sends fixed, mostly padded buckets so as to stay capturable
+(parallel/distributed.py).
 
 Training state on a process mesh (app/train.py): each process holds its
 rows of every slot-indexed tensor (parameters, Adam moments, density
@@ -162,6 +167,24 @@ class _AllGather(torch.autograd.Function):
         return g[lo:lo + ctx.rows]
 
 
+class _AllToAll(torch.autograd.Function):
+    """Rows [sum(send[:j]), sum(send[:j + 1])) of x to rank j; the parts
+    received, concatenated in rank order. The backward is the inverse
+    exchange with the same sizes."""
+
+    @staticmethod
+    def forward(ctx, x, send_sizes, recv_sizes):
+        ctx.sizes = send_sizes, recv_sizes
+        out = x.new_empty((sum(recv_sizes),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), recv_sizes, send_sizes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        send_sizes, recv_sizes = ctx.sizes
+        return _AllToAll.apply(g, recv_sizes, send_sizes), None, None
+
+
 class _GatherReplicated(torch.autograd.Function):
     """All ranks' x, concatenated on every rank; backward keeps this
     rank's rows of the cotangent, which every rank holds whole because the
@@ -207,14 +230,25 @@ class ProcessShardGroup:
         """The local shard: x is this process's slice already."""
         return [x.to(self.device)]
 
-    def all_to_all(self, sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def demand_matrix(self, demand: torch.Tensor) -> List[List[int]]:
+        """Every rank's (D,) per-destination row demand, as a (D, D) list
+        on the host, row i rank i's: one all_gather of D counts, then one
+        read back to the host, which waits for this process's stream."""
+        wire = demand.cpu() if _staged(demand) else demand
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        dist.all_gather(parts, wire)
+        return torch.stack(parts).tolist()
+
+    def all_to_all(self, sends: Sequence[torch.Tensor],
+                   send_sizes: Sequence[int],
+                   recv_sizes: Sequence[int]) -> List[torch.Tensor]:
+        """The local shard's rows [sum(send_sizes[:j]), ... + send_sizes[j])
+        to rank j; received, recv_sizes[i] rows from rank i in rank order.
+        Differentiable: the backward sends the cotangents back."""
         (send,) = sends
-        dev = send.device
-        wire = _to_wire(send)
-        parts = list(wire.chunk(self.size))
-        outs = [torch.empty_like(p) for p in parts]
-        recv = torch.cat(dist.nn.functional.all_to_all(outs, parts))
-        return [recv.to(dev)]
+        recv = _AllToAll.apply(_to_wire(send), list(send_sizes),
+                               list(recv_sizes))
+        return [recv.to(send.device)]
 
     def all_gather(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         (x,) = xs

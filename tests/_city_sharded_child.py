@@ -9,8 +9,9 @@ torch.save.
 CONFIG is a JSON file holding {"config", "traffic", "seed", "view"}.
 Saved: the shard the rank drew (scene and start), the target and the
 start's image (the sharded render, gathered), the step's loss and drop
-counters, and the rank's rows of the first gradient (Adam's first moment
-over 1 - b1).
+counters, the rank's rows of the first gradient (Adam's first moment
+over 1 - b1), and the exchange's counters (rows sent, bucket rows, rows
+received) of the start's render and of the step, each recorded alone.
 """
 
 import json
@@ -20,6 +21,20 @@ import sys
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COUNTERS = ("exchange.rows_sent", "exchange.bucket_rows",
+            "exchange.recv_rows")
+
+
+def recorded(fn):
+    """fn() with spans recorded: (its result, the exchange's counters)."""
+    from gaussian_splat_ipu_tpu_torch.utils import profiling
+    rec = profiling.start("cpu")
+    try:
+        out = fn()
+    finally:
+        profiling.stop()
+    summary = rec.summary()
+    return out, {k: summary[k] for k in COUNTERS}
 
 
 def main():
@@ -53,9 +68,10 @@ def main():
         target = distributed.render_sharded(
             GaussianModel(*(gt[k] for k in city.FIELDS)), cam, cfg,
             pmesh).image
-        image = distributed.render_sharded(
-            GaussianModel(*(init[k] for k in city.FIELDS)), cam, cfg,
-            pmesh).image
+        image, render_counts = recorded(
+            lambda: distributed.render_sharded(
+                GaussianModel(*(init[k] for k in city.FIELDS)), cam, cfg,
+                pmesh).image)
     tcfg = trainer.TrainConfig(**fit.train_settings(config, traffic))
     state = trainer.init_state(GaussianModel(
         *(init[k].clone() for k in city.FIELDS), requires_grad=True), tcfg)
@@ -63,12 +79,15 @@ def main():
     trainer.register_step(engine, state, cam, target, cfg, tcfg,
                           step_fn=sharded_fit.build_step(pmesh, cfg, tcfg),
                           eager=sharded_fit.EAGER)
-    loss, stats = engine.run(trainer.STEP_PROGRAM, state, cam, target)
+    (loss, stats), step_counts = recorded(
+        lambda: engine.run(trainer.STEP_PROGRAM, state, cam, target))
     grads = {k: state.opt_state.adam[k].mu / (1.0 - fit.B1)
              for k in city.FIELDS}
     torch.save(dict(gt=gt, init=init, target=target, image=image,
                     loss=float(loss), stats=stats.tolist(), grads=grads,
-                    pair_capacity=cfg.pair_capacity), out)
+                    pair_capacity=cfg.pair_capacity,
+                    counters=dict(render=render_counts, step=step_counts)),
+               out)
     print("OK")
 
 

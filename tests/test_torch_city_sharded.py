@@ -6,7 +6,10 @@ sharded_fit driver registers, on a drone view. Held to the plain
 reference on the whole model (splatbench/reference/sharded_fit.py): the
 target and the start's image, the loss, and each field's gradient. A
 second case holds each shard a process drew to the rows of the whole
-model's draw."""
+model's draw. The process mesh sizes each exchange bucket by its demand:
+its frames, loss and gradients are held to the bit to the in-process
+4-shard mesh's, whose buckets are fixed and mostly pads, and its counters
+show that it sends and receives no pad row."""
 
 import copy
 import json
@@ -108,6 +111,50 @@ def reference(children):
     return dict(target=target, image=image, loss=float(loss), grads=grads)
 
 
+@pytest.fixture(scope="module")
+def in_process(children):
+    """The children's renders and step on the in-process 4-shard mesh
+    (parallel/mesh.py: fixed buckets of nloc rows) over the whole model,
+    one thread as the children."""
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import GaussianModel
+    from gaussian_splat_ipu_tpu_torch.parallel import distributed, mesh
+    from gaussian_splat_ipu_tpu_torch.runtime.engine import RenderEngine
+    from gaussian_splat_ipu_tpu_torch.train import trainer
+    from gaussian_splat_ipu_tpu_torch.utils.config import RuntimeConfig
+    from splatbench import harness
+    from splatbench.drivers import sharded_fit
+    config, traffic, outs = children
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        msh = mesh.make_mesh(WORLD, device="cpu")
+        cam = Camera(*city.drone_cameras(config, traffic, "cpu")[VIEW])
+        cfg = harness.raster_config(config, outs[0]["pair_capacity"])
+        gt = city.make_scene(config["scene"], SEED, "cpu")
+        init = city.make_scene(config["scene"], SEED, "cpu",
+                               start=traffic["perturb"])
+        with torch.no_grad():
+            target, image = (distributed.render_sharded(
+                GaussianModel(*(m[k] for k in city.FIELDS)), cam, cfg,
+                msh).image for m in (gt, init))
+        tcfg = trainer.TrainConfig(**fit.train_settings(config, traffic))
+        state = trainer.init_state(GaussianModel(
+            *(init[k].clone() for k in city.FIELDS), requires_grad=True),
+            tcfg)
+        engine = RenderEngine(RuntimeConfig(device="cpu"))
+        trainer.register_step(engine, state, cam, target, cfg, tcfg,
+                              step_fn=sharded_fit.build_step(msh, cfg, tcfg),
+                              eager=sharded_fit.EAGER)
+        loss, stats = engine.run(trainer.STEP_PROGRAM, state, cam, target)
+        grads = {k: state.opt_state.adam[k].mu / (1.0 - fit.B1)
+                 for k in city.FIELDS}
+    finally:
+        torch.set_num_threads(threads)
+    return dict(target=target, image=image, loss=float(loss),
+                stats=stats.tolist(), grads=grads)
+
+
 def test_frames_and_loss_match_the_reference(children, reference):
     _, _, outs = children
     for o in outs:
@@ -128,6 +175,40 @@ def test_gradient_matches_the_reference(children, reference, field):
     assert float(want.abs().max()) > 0.0
     assert torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL), \
         float((got - want).abs().max())
+
+
+def test_frames_and_loss_equal_the_in_process_mesh(children, in_process):
+    """Buckets sized by the demand change no number: the received rows
+    are the fixed buckets' rows without their pads, in the same order."""
+    _, _, outs = children
+    assert in_process["stats"] == [0, 0, 0]
+    for o in outs:
+        for key in ("target", "image"):
+            assert torch.equal(o[key], in_process[key]), key
+        assert o["loss"] == in_process["loss"]
+
+
+@pytest.mark.parametrize("field", city.FIELDS)
+def test_gradient_equals_the_in_process_mesh(children, in_process, field):
+    _, _, outs = children
+    got = torch.cat([o["grads"][field] for o in outs])
+    assert torch.equal(got, in_process["grads"][field])
+
+
+@pytest.mark.parametrize("run", ["render", "step"])
+def test_exchange_sends_and_bins_no_pad_row(children, run):
+    """On the process mesh every send row carries a splat (bucket rows
+    equal rows sent, on every rank), every row sent is received, and each
+    strip receives fewer rows than one fixed bucket of nloc rows from each
+    shard would hold."""
+    config, _, outs = children
+    n = city.shard_rows(config["scene"])
+    counts = [o["counters"][run] for o in outs]
+    for c in counts:
+        assert c["exchange.bucket_rows"] == c["exchange.rows_sent"] > 0
+        assert 0 < c["exchange.recv_rows"] < WORLD * n
+    assert sum(c["exchange.recv_rows"] for c in counts) \
+        == sum(c["exchange.rows_sent"] for c in counts)
 
 
 def test_shards_drawn_apart_equal_the_whole_draw(children):

@@ -170,6 +170,48 @@ def test_route_backward_is_the_gather_transpose():
         assert (int(ovf) > 0) == (cap == 8)
 
 
+@pytest.mark.parametrize("cap", [128, 8])
+def test_demand_sized_route_is_the_fixed_route_without_pads(cap):
+    """_route_by_demand (a process mesh's buckets, each as long as the
+    rows it keeps) sends the fixed buckets' kept rows, in their order,
+    without the pad rows, from the splats' columns or the packed rows; its
+    transpose is the fixed route's, bit for bit,
+    so also autograd's transpose of the plain row gather. Splats on up to
+    3 of 4 strips; at cap 8 rows are dropped, as many as the fixed route
+    counts."""
+    rng = np.random.default_rng(4)
+    n, d = 60, 4
+    dest_lo = torch.tensor(rng.integers(0, d, n), dtype=torch.int32)
+    span = torch.tensor(np.minimum(rng.integers(0, 4, n),
+                                   d - dest_lo.numpy()), dtype=torch.int32)
+    base = torch.tensor(rng.normal(size=(n, 12)).astype(np.float32))
+    demand = distributed._bucket_demand(dest_lo, span, d)
+    want_demand = [int(((dest_lo <= j) & (j < dest_lo + span)).sum())
+                   for j in range(d)]
+    assert demand.tolist() == want_demand
+    sizes = [min(m, cap) for m in want_demand]
+
+    fixed = base.clone().requires_grad_()
+    fsend, fovf = distributed._route_all_to_all(fixed, dest_lo, span, d,
+                                                max(want_demand))
+    kept = torch.cat([b[:m] for b, m in zip(fsend.chunk(d), sizes)])
+    sized = base.clone().requires_grad_()
+    cols = list(sized.split([2, 1, 3, 3, 1, 2], dim=1))
+    send = distributed._route_by_demand(cols, dest_lo, span, demand,
+                                        want_demand, cap)
+    assert torch.equal(send.detach(), kept.detach())
+    assert int(fovf) == 0
+    cot = torch.tensor(rng.normal(size=send.shape).astype(np.float32))
+    (got,) = torch.autograd.grad((send * cot).sum(), sized)
+    (want,) = torch.autograd.grad((kept * cot).sum(), fixed)
+    assert torch.equal(got, want)
+    assert (int(torch.clamp_min(demand - cap, 0).sum()) > 0) == (cap == 8)
+    with torch.no_grad():
+        plain = distributed._route_by_demand([base], dest_lo, span, demand,
+                                             want_demand, cap)
+    assert torch.equal(plain, send.detach())
+
+
 def test_sharded_gradients_match_jax_and_single_device():
     jm, jc, tm, tc = scene(seed=6, n=64, cfg=UNEVEN)
     jmsh, tmsh = both_meshes(4)

@@ -4,7 +4,9 @@ shards of a 97-gaussian PLY (an odd count: the last shard is padded),
 render them sharded with a gradient and export the PLY by positional
 writes. Held to the JAX package's single-process load (rows, bounds) and
 export (bytes), and to the port's one-process render over a 2-shard mesh
-(image and pairs equal, gradient norm rtol 1e-5)."""
+(image and pairs equal, gradient norm rtol 1e-5). A second pair renders a
+random model with every exchange bucket capped at 128 rows: the rows past
+the cap are dropped and counted, and no other row is lost."""
 
 import os
 import socket
@@ -17,7 +19,8 @@ import torch
 from gaussian_splat_ipu_tpu.io.scene import load_scene as j_load_scene
 from gaussian_splat_ipu_tpu.train import checkpoint as jcheckpoint
 from gaussian_splat_ipu_tpu_torch.models.camera import Camera
-from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS
+from gaussian_splat_ipu_tpu_torch.models.gaussians import (FIELDS,
+                                                          GaussianModel)
 from gaussian_splat_ipu_tpu_torch.io.scene import load_scene
 from gaussian_splat_ipu_tpu_torch.parallel import distributed, mesh, multihost
 from tests._torch_multihost_child import CFG
@@ -25,6 +28,7 @@ from tests.test_multihost import _write_gaussian_ply
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_multihost_child.py")
+CAPPED_CHILD = os.path.join(REPO, "tests", "_torch_capped_exchange_child.py")
 TIMEOUT_S = 120
 
 
@@ -87,6 +91,64 @@ def test_two_processes_load_render_and_export(tmp_path):
         assert int(g["num_pairs"]) == int(out.num_pairs) > 0
         np.testing.assert_allclose(float(g["sumsq"]), sumsq, rtol=1e-5)
     assert sumsq > 0
+
+
+def _strip_demand(model, cam, cfg, d) -> list:
+    """Rows a shard sends each of d strips, by a loop over its splats:
+    one row to each strip whose tile rows the splat's footprint touches."""
+    from gaussian_splat_ipu_tpu_torch.render import binning
+    from gaussian_splat_ipu_tpu_torch.render.projection import (
+        project_gaussians)
+    rows = distributed._rows_per_device(cfg, d)
+    with torch.no_grad():
+        _, y0, nx, ny = binning.tile_ranges_of(
+            project_gaussians(model, cam, cfg), cfg)
+    demand = [0] * d
+    for y, w, h in zip(y0.tolist(), nx.tolist(), ny.tolist()):
+        if w > 0 and h > 0:
+            for j in range(y // rows, (y + h - 1) // rows + 1):
+                demand[j] += 1
+    return demand
+
+
+def test_two_processes_drop_and_count_rows_past_a_capped_bucket(tmp_path):
+    """Buckets sized by the demand still honour the capacity: with
+    _exchange_capacity patched to 128 rows, the frame's exchange_overflow
+    is the sum of max(demand - 128, 0) over every (source, destination)
+    bucket, and every other row is sent and received."""
+    from tests._torch_capped_exchange_child import CAP_ROWS, scene
+    coord = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, CAPPED_CHILD, str(r), "2", coord, outs[r]],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, logs):
+        assert p.returncode == 0 and out.strip().endswith("OK"), err[-3000:]
+    got = [torch.load(o) for o in outs]
+
+    model, cam = scene()
+    half = model.num_gaussians // 2
+    demand = [_strip_demand(GaussianModel(*(
+        getattr(model, k)[r * half:(r + 1) * half] for k in FIELDS)),
+        cam, CFG, 2) for r in range(2)]
+    dropped = sum(max(m - CAP_ROWS, 0) for row in demand for m in row)
+    kept = sum(min(m, CAP_ROWS) for row in demand for m in row)
+    assert dropped > 0
+    for g in got:
+        assert g["exchange_overflow"] == dropped
+        c = g["counters"]
+        assert c["exchange.bucket_rows"] == c["exchange.rows_sent"]
+    assert sum(g["counters"]["exchange.rows_sent"] for g in got) == kept
+    assert sum(g["counters"]["exchange.recv_rows"] for g in got) == kept
+    assert torch.equal(got[0]["image"], got[1]["image"])
+    assert float(got[0]["image"][..., 3].max()) > 0
 
 
 def test_single_process_helpers():
