@@ -386,6 +386,9 @@ KERNEL_SOURCES = {
     "project_gaussians_bwd": ("project_bwd.cu", "render/projection.py (no "
                               "Pallas kernel: XLA differentiates the "
                               "projection)"),
+    "project_gaussians_bwd_view": ("project_bwd.cu", "render/projection.py "
+                                   "(no Pallas kernel: XLA differentiates "
+                                   "the projection in the view too)"),
     "adam": ("adam.cu", "train/adam.py (no Pallas kernel: the update is "
              "optax's, fused by XLA)"),
 }
@@ -1249,6 +1252,7 @@ def extras_pose(tmp: str, app_scene, ds: dict, dev, launches: dict) -> dict:
     maps and the per-epoch loss, which must fall at the last rate."""
     import torch
     import gaussian_splat_ipu_tpu_torch.app.train as app_train
+    from gaussian_splat_ipu_tpu_torch.render import projection
     from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
     from gaussian_splat_ipu_tpu_torch.runtime import engine as engine_lib
     from gaussian_splat_ipu_tpu_torch.train import pose_opt
@@ -1282,6 +1286,7 @@ def extras_pose(tmp: str, app_scene, ds: dict, dev, launches: dict) -> dict:
         injected_mean_abs_bias=float(np.abs(bias[train]).mean()), runs=[])
     for lr in EX_EXPOSURE_LRS:
         path = f"extras pose exposure {lr:g}"
+        plain = dict(projection.plain_calls)
         st, launches[path] = counted(cuda_lib, lambda: app_train.run([
             "--dataset", root, "--holdout-every", str(DS_HOLDOUT),
             "--exact-tiles", "--pair-capacity", str(ds["pair_capacity"]),
@@ -1293,6 +1298,14 @@ def extras_pose(tmp: str, app_scene, ds: dict, dev, launches: dict) -> dict:
         need_exact(path, launches[path], ("rasterize_strict",), captured)
         need_exact(path, launches[path], ("coverage_masks", "stream_expand"),
                    3 * captured)
+        # The image's and the depth's projection: G-bwd with the view's
+        # gradient, no plain projection for the camera.
+        need_exact(path, launches[path], ("project_gaussians_bwd",
+                                          "project_gaussians_bwd_view"),
+                   2 * captured)
+        if projection.plain_calls["camera_grad"] != plain.get("camera_grad",
+                                                               0):
+            fail(f"{path}: the plain projection ran for the camera")
         if any(drops_of(st)):
             fail(f"{path} dropped pairs: {drops_of(st)}")
         per = ds["train_views"]
@@ -1690,6 +1703,84 @@ def project_bwd_row(label: str, model, cam, cfg, cuda_ms) -> dict:
                 label=f"project_gaussians_bwd {label} plain", enforce=False),
             **bound(model.num_gaussians * (44 + 12 * kc + 40 + 44 + 12 * k),
                     0))
+
+
+def project_bwd_view_row(label: str, model, cam, cfg, cuda_ms) -> dict:
+    """Kernel G-bwd with the view matrix's gradient (pose refinement) on
+    one frame, every gaussian given normal cotangents of xy, conic, colour
+    and opacity (depth's none, as in a render): the view's gradient against
+    the plain twin's in float64 on the same f32 inputs, G-bwd's error at
+    most ACC_FACTOR times the f32 twin's (floored at ACC_FLOOR of the
+    norm; fails otherwise), its parameter gradients equal to the
+    camera-free launch's bit for bit; the device ms of both launches, of
+    the plain projection's autograd backward with the view a leaf (the
+    path a view gradient took before this kernel; its graph kept, its view
+    gradient's error beside G-bwd's), and the view launch's byte bound
+    (project_bwd_row's, with the 112 B of partial sums of each block of
+    128 gaussians)."""
+    import torch
+    from gaussian_splat_ipu_tpu_torch.models.camera import Camera
+    from gaussian_splat_ipu_tpu_torch.models.gaussians import FIELDS
+    from gaussian_splat_ipu_tpu_torch.render import projection
+    from gaussian_splat_ipu_tpu_torch.render.kernels import project
+    degree = (model.sh_degree if cfg.active_sh_degree < 0
+              else min(model.sh_degree, cfg.active_sh_degree))
+    n = model.num_gaussians
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    widths = (2, None, 3, 3, None)
+    cots = [None if w is None else torch.randn(
+        (n, w), generator=gen, device=model.device) for w in widths]
+    cots[4] = torch.randn((n,), generator=gen, device=model.device)
+    args = [getattr(model, k).detach() for k in FIELDS] + [
+        cam.view, cam.proj, cam.env_rot, cfg, degree]
+    got = project.project_bwd(*args, cots, view_grad=True)
+    plain = project.project_bwd(*args, cots)
+    if not all(torch.equal(a, b) for a, b in zip(got[:5], plain[:5])):
+        fail(f"project_gaussians_bwd view {label}: the parameter gradients "
+             "differ from the camera-free launch's")
+    twin = project.project_gaussians_bwd_torch(*args, cots,
+                                               view_grad=True)[-1]
+    exact = project.project_gaussians_bwd_torch(
+        *(a.double() if isinstance(a, torch.Tensor) else a for a in args),
+        [None if c is None else c.double() for c in cots],
+        view_grad=True)[-1]
+    err = float((got[-1].double() - exact).norm())
+    err_twin = float((twin.double() - exact).norm())
+    limit = project.ACC_FACTOR * max(
+        err_twin, project.ACC_FLOOR * float(exact.norm()))
+    del twin, plain
+    if not err <= limit:
+        fail(f"project_gaussians_bwd view {label}: error {err:.3e} over "
+             f"{limit:.3e}")
+    with torch.inference_mode(False), torch.enable_grad():
+        trainable = model.trainable()
+        leaves = list(trainable.parameters())
+        view = cam.view.clone().requires_grad_(True)
+        outs = projection.project_gaussians_torch(
+            trainable, Camera(view, cam.proj.clone(), cam.env_rot.clone()),
+            cfg)[:5]
+        pairs = [(o, c) for o, c in zip(outs, cots) if c is not None]
+        outs_used = [o for o, _ in pairs]
+        cots_used = [c for _, c in pairs]
+        g_view = torch.autograd.grad(outs_used, leaves + [view], cots_used,
+                                     retain_graph=True)[-1]
+        err_plain = float((g_view.double() - exact).norm())
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            outs_used, leaves + [view], cots_used, retain_graph=True),
+            label=f"project_gaussians_bwd view {label} plain", enforce=False)
+    del exact, outs, outs_used, pairs, g_view
+    kc, k = (degree + 1) ** 2, model.sh.shape[1]
+    blocks = -(-n // project.THREADS)
+    return dict(
+        shape=label, view_err=err, view_err_twin=err_twin,
+        view_err_plain=err_plain, view_ratio=err / limit,
+        ms=cuda_ms(lambda: project.project_bwd(*args, cots, view_grad=True),
+                   label=f"project_gaussians_bwd view {label}"),
+        camera_free_ms=cuda_ms(lambda: project.project_bwd(*args, cots),
+                               label=f"project_gaussians_bwd {label}"),
+        plain_ms=plain_ms,
+        **bound(n * (44 + 12 * kc + 36 + 44 + 12 * k)
+                + blocks * 4 * project.VIEW_PARTS, 0))
 
 
 def adam_row(label: str, n: int, sh_degree: int, cuda_ms) -> dict:
@@ -3139,6 +3230,9 @@ def main() -> int:
                                     cfg_1m, cuda_ms),
                     project_bwd_row("37.9k SH 0", app_scene.model, cam_app,
                                     cfg_app, cuda_ms)]
+        # G-bwd with the view's gradient (pose refinement).
+        view_row = project_bwd_view_row("2^20 SH 3", model_sh3, cam_1m(0.0),
+                                        cfg_1m, cuda_ms)
         del model_sh3
         for row in g_rows:
             say("project_gaussians", **row,
@@ -3160,6 +3254,12 @@ def main() -> int:
             **{k: bwd_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "bytes",
                                            "operations")})
+        say("project_gaussians_bwd_view", **view_row,
+            share=view_row["bound_ms"] / view_row["ms"])
+        results["project_gaussians_bwd_view"] = result(
+            "project_gaussians_bwd_view", **{k: view_row[k] for k in (
+                "view_ratio", "ms", "camera_free_ms", "plain_ms", "bound_ms",
+                "bound_by", "bytes", "operations")})
         # Kernel H at the capture's width, in the densify cell's 2^21
         # slots, and on the app scene.
         h_rows = [adam_row(label, n, degree, cuda_ms) for label, n, degree

@@ -33,9 +33,25 @@
 // residue into a full step. A block with no such gaussian reads nothing
 // but its cotangents and writes zeros.
 //
+// The view matrix's gradient (project_bwd_view_kernel, launched only where
+// a gradient is asked for the view: pose refinement). The view enters
+// three places, and each live gaussian adds to each: the view transform
+// vh = V [m, 1] (through xy, depth and the EWA Jacobian's tx, ty, tz),
+// whose term is vh's cotangent times [m, 1]; W = V[:3, :3] in U = J W,
+// whose term is U's cotangent times the Jacobian; and the camera origin
+// -(R^T t) in the SH view direction, reduced here as the 3-vector sum of
+// the direction's cotangents and chained to R and t after the launch
+// (render/kernels/project.py::view_grad). Each block writes its kViewParts
+// sums (a shuffle tree per warp, then the warps in order) to its own row
+// of the partials; one torch.sum over the rows follows: no atomics, the
+// same bits on every run. A block without a live gaussian writes a row of
+// zeros. The camera-free kernel (project_bwd_kernel) is the same body
+// without these sums.
+//
 // Bound on the H100: bytes. Read per gaussian: 236 B of parameters at SH 3
 // and the 40 B of cotangents given; written: 236 B of gradients and, with
-// an xy probe, its 8 B: about 545 MB at 2^20, 0.16 ms at 3.35 TB/s. Some
+// an xy probe, its 8 B: about 545 MB at 2^20, 0.16 ms at 3.35 TB/s. The
+// view kernel adds 112 B of partials a block of 128: 0.9 MB at 2^20. Some
 // 800 flops per gaussian stay far below the FP32 rate. Design: one thread
 // per gaussian, kThreads a block; the SH coefficients come in through
 // shared memory as in G, and the (N, K, 3) SH gradient, 81% of the bytes
@@ -170,7 +186,37 @@ __device__ __forceinline__ float cot(const float* __restrict__ p, int s,
   return p ? p[(size_t)i * s + col] : 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
+// The view gradient's partial sums, in this order: the view transform's
+// term (16, row-major as V), the EWA W term (9, row-major as W), the sum of
+// the SH view direction's cotangents (3).
+constexpr int kViewParts = 28;
+constexpr int kWarps = kThreads / 32;
+
+// The block's sum of each thread's `part` (every thread calls this), in
+// `out` (its row of the partials) by threads 0..kViewParts-1.
+__device__ __forceinline__ void reduce_view_parts(float part[kViewParts],
+                                                  float* __restrict__ out) {
+  __shared__ float warp_sums[kWarps][kViewParts];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kViewParts; ++j) {
+    float v = part[j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) warp_sums[warp][j] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kViewParts) {
+    float s = warp_sums[0][threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+}
+
+template <bool kView>
+__device__ __forceinline__ void project_bwd_body(
     const float* __restrict__ means, const float* __restrict__ log_scales,
     const float* __restrict__ quats, const float* __restrict__ opacities,
     const float* __restrict__ sh, int n, int sh_row, int degree,
@@ -183,7 +229,8 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
     const float* __restrict__ g_opacity, int s_opacity,
     float* __restrict__ d_means, float* __restrict__ d_log_scales,
     float* __restrict__ d_quats, float* __restrict__ d_opacities,
-    float* __restrict__ d_sh, float2* __restrict__ d_probe) {
+    float* __restrict__ d_sh, float2* __restrict__ d_probe,
+    float* __restrict__ d_view_part) {
   __shared__ CameraConsts cam;
   __shared__ float sh_s[kThreads * kMaxStride];
   const int b0 = blockIdx.x * kThreads;
@@ -217,6 +264,9 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
     zero_span(d_quats + 4 * (size_t)b0, 4 * rows);
     zero_span(d_opacities + b0, rows);
     zero_span(d_sh + (size_t)b0 * sh_row, rows * sh_row);
+    if constexpr (kView) {
+      if (t < kViewParts) d_view_part[blockIdx.x * kViewParts + t] = 0.0f;
+    }
     return;
   }
 
@@ -241,6 +291,10 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   float dq[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dop = 0.0f;
   float graw[3] = {0.0f, 0.0f, 0.0f};
   float x = 0.0f, y = 0.0f, z = 0.0f;
+  float vpart[kView ? kViewParts : 1];
+  if constexpr (kView) {
+    for (int j = 0; j < kViewParts; ++j) vpart[j] = 0.0f;
+  }
   if (live) {
     const float* v = cam.view;
     const float* p = cam.proj;
@@ -277,6 +331,10 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
       const float g_raw = dir.nrm_raw >= (float)1e-8 ? g_nrm : 0.0f;
       const float scale = dir.nrm_raw == 0.0f ? 0.0f : g_raw / dir.nrm_raw;
       for (int j = 0; j < 3; ++j) dm[j] = ge[j] / dir.nrm + dir.d[j] * scale;
+      // d = m - origin: the direction's cotangent, summed for the origin.
+      if constexpr (kView) {
+        for (int j = 0; j < 3; ++j) vpart[25 + j] = dm[j];
+      }
     }
 
     // Opacity: the antialias factor, the sigmoid.
@@ -379,6 +437,18 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
       dm[k] += ((g_vh[0] * v[k] + g_vh[1] * v[4 + k]) + g_vh[2] * v[8 + k])
                + g_vh[3] * v[12 + k];
     }
+    if constexpr (kView) {
+      // vh = V [m, 1]; u0 = j00 W[0] + j02 W[2], u1 = j11 W[1] + j12 W[2].
+      for (int r = 0; r < 4; ++r) {
+        for (int c = 0; c < 3; ++c) vpart[4 * r + c] = g_vh[r] * m[c];
+        vpart[4 * r + 3] = g_vh[r];
+      }
+      for (int k = 0; k < 3; ++k) {
+        vpart[16 + k] = gu0[k] * g.j00;
+        vpart[19 + k] = gu1[k] * g.j11;
+        vpart[22 + k] = gu0[k] * g.j02 + gu1[k] * g.j12;
+      }
+    }
 
     // Sigma = M M^T, M = R S: M's gradient, then R's, the scales' and the
     // log-scales'.
@@ -425,6 +495,9 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
     for (int k = 0; k < 4; ++k) d_quats[4 * (size_t)i + k] = dq[k];
     d_opacities[i] = dop;
   }
+  if constexpr (kView) {
+    reduce_view_parts(vpart, d_view_part + blockIdx.x * kViewParts);
+  }
 
   // The SH gradient: basis times the clamped colour's cotangent for the
   // active bands, 0 above them; each row through shared memory.
@@ -444,6 +517,49 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   unstage_rows(d_sh + (size_t)b0 * sh_row, sh_s, rows, sh_row, stride_out);
 }
 
+__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
+    const float* __restrict__ means, const float* __restrict__ log_scales,
+    const float* __restrict__ quats, const float* __restrict__ opacities,
+    const float* __restrict__ sh, int n, int sh_row, int degree,
+    const float* __restrict__ view, const float* __restrict__ proj,
+    const float* __restrict__ env_rot, float width, float height,
+    float lowpass, int flags, const float* __restrict__ g_xy, int s_xy,
+    const float* __restrict__ g_depth, int s_depth,
+    const float* __restrict__ g_conic, int s_conic,
+    const float* __restrict__ g_color, int s_color,
+    const float* __restrict__ g_opacity, int s_opacity,
+    float* __restrict__ d_means, float* __restrict__ d_log_scales,
+    float* __restrict__ d_quats, float* __restrict__ d_opacities,
+    float* __restrict__ d_sh, float2* __restrict__ d_probe) {
+  project_bwd_body<false>(
+      means, log_scales, quats, opacities, sh, n, sh_row, degree, view, proj,
+      env_rot, width, height, lowpass, flags, g_xy, s_xy, g_depth, s_depth,
+      g_conic, s_conic, g_color, s_color, g_opacity, s_opacity, d_means,
+      d_log_scales, d_quats, d_opacities, d_sh, d_probe, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads) project_bwd_view_kernel(
+    const float* __restrict__ means, const float* __restrict__ log_scales,
+    const float* __restrict__ quats, const float* __restrict__ opacities,
+    const float* __restrict__ sh, int n, int sh_row, int degree,
+    const float* __restrict__ view, const float* __restrict__ proj,
+    const float* __restrict__ env_rot, float width, float height,
+    float lowpass, int flags, const float* __restrict__ g_xy, int s_xy,
+    const float* __restrict__ g_depth, int s_depth,
+    const float* __restrict__ g_conic, int s_conic,
+    const float* __restrict__ g_color, int s_color,
+    const float* __restrict__ g_opacity, int s_opacity,
+    float* __restrict__ d_means, float* __restrict__ d_log_scales,
+    float* __restrict__ d_quats, float* __restrict__ d_opacities,
+    float* __restrict__ d_sh, float2* __restrict__ d_probe,
+    float* __restrict__ d_view_part) {
+  project_bwd_body<true>(
+      means, log_scales, quats, opacities, sh, n, sh_row, degree, view, proj,
+      env_rot, width, height, lowpass, flags, g_xy, s_xy, g_depth, s_depth,
+      g_conic, s_conic, g_color, s_color, g_opacity, s_opacity, d_means,
+      d_log_scales, d_quats, d_opacities, d_sh, d_probe, d_view_part);
+}
+
 }  // namespace
 
 // The parameters and camera as gsplat_project_gaussians takes them (sh
@@ -452,6 +568,8 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
 // view with row stride s_* floats, or NULL for a zero cotangent. Outputs
 // (N, 3) d_means and d_log_scales, (N, 4) d_quats, (N,) d_opacities,
 // (N, K, 3) d_sh and, unless NULL, the (N, 2) gradient of an xy probe.
+// d_view_part: NULL, or the view gradient's partials, one row of
+// kViewParts floats for each block of kThreads gaussians.
 extern "C" int gsplat_project_gaussians_bwd(
     const float* means, const float* log_scales, const float* quats,
     const float* opacities, const float* sh, int n, int sh_row, int degree,
@@ -460,19 +578,28 @@ extern "C" int gsplat_project_gaussians_bwd(
     const float* g_depth, int s_depth, const float* g_conic, int s_conic,
     const float* g_color, int s_color, const float* g_opacity, int s_opacity,
     float* d_means, float* d_log_scales, float* d_quats, float* d_opacities,
-    float* d_sh, float* d_probe, void* stream) {
+    float* d_sh, float* d_probe, float* d_view_part, void* stream) {
   if (degree < 0 || degree > 3 || 3 * (degree + 1) * (degree + 1) > sh_row
       || sh_row > 3 * kMaxCoeffs || sh_row % 3 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n > 0) {
-    project_bwd_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-        means, log_scales, quats, opacities, sh, n, sh_row, degree, view,
-        proj, env_rot, width, height, lowpass, flags, g_xy, s_xy, g_depth,
-        s_depth, g_conic, s_conic, g_color, s_color, g_opacity, s_opacity,
-        d_means, d_log_scales, d_quats, d_opacities, d_sh,
-        reinterpret_cast<float2*>(d_probe));
+    const int blocks = (n + kThreads - 1) / kThreads;
+    float2* probe = reinterpret_cast<float2*>(d_probe);
+    if (d_view_part) {
+      project_bwd_view_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          means, log_scales, quats, opacities, sh, n, sh_row, degree, view,
+          proj, env_rot, width, height, lowpass, flags, g_xy, s_xy, g_depth,
+          s_depth, g_conic, s_conic, g_color, s_color, g_opacity, s_opacity,
+          d_means, d_log_scales, d_quats, d_opacities, d_sh, probe,
+          d_view_part);
+    } else {
+      project_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          means, log_scales, quats, opacities, sh, n, sh_row, degree, view,
+          proj, env_rot, width, height, lowpass, flags, g_xy, s_xy, g_depth,
+          s_depth, g_conic, s_conic, g_color, s_color, g_opacity, s_opacity,
+          d_means, d_log_scales, d_quats, d_opacities, d_sh, probe);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -79,11 +79,11 @@ _SIGNATURES = {
     # proj, env_rot, width, height, lowpass, flags, then each of the
     # cotangents of xy, depth, conic, color and opacity with its row stride,
     # then d_means, d_log_scales, d_quats, d_opacities, d_sh, d_probe,
-    # stream
+    # d_view_part, stream
     "gsplat_project_gaussians_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                      _P, _F, _F, _F, _I, _P, _I, _P, _I, _P,
                                      _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                                     _P, _P),
+                                     _P, _P, _P),
     # log, state, capacity, tag, stream
     "gsplat_stamp": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     # words (page-locked host memory), timeout_ns, stream

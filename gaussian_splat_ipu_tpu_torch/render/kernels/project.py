@@ -5,8 +5,12 @@
 render/projection.py::project_gaussians, whose plain PyTorch body is G's
 plain version and stays the CPU path (projection.py chooses between
 them). `project_bwd` launches G-bwd: the gradients of G's differentiable
-outputs with respect to the gaussians' parameters, the backward of
-projection.py's autograd Function. Its plain twin,
+outputs with respect to the gaussians' parameters and, where asked (pose
+refinement), the view matrix, the backward of projection.py's autograd
+Function. The view's gradient is a sum over every gaussian: G-bwd writes
+one row of partial sums a block (VIEW_PARTS), and `assemble_view_grad`
+adds the rows and chains the camera origin's term to the view, in a few
+device ops after the launch. Its plain twin,
 `project_gaussians_bwd_torch`, computes the same from the same formulas
 in PyTorch ops, in the inputs' dtype (the CPU tests hold it to autograd
 of the plain version in float64). No TPU kernel corresponds: the JAX
@@ -26,6 +30,7 @@ import torch
 from gaussian_splat_ipu_tpu_torch.ops import sh as sh_ops
 from gaussian_splat_ipu_tpu_torch.ops import transforms
 from gaussian_splat_ipu_tpu_torch.render.kernels import cuda_lib
+from gaussian_splat_ipu_tpu_torch.utils import profiling
 from gaussian_splat_ipu_tpu_torch.utils.config import RasterConfig
 
 _SIGMOID, _ANTIALIAS, _CAP_Q = 1, 2, 4
@@ -41,6 +46,14 @@ GRADS = ("d_means", "d_log_scales", "d_quats", "d_opacities", "d_sh",
 # same terms; the twin in f32 reads at most 6 times autograd's on the
 # CPU tests' scenes).
 ACC_FACTOR, ACC_FLOOR = 16.0, 1e-5
+# G-bwd's gaussians a block (csrc/project_common.cuh kThreads), and the
+# view gradient's partial sums a block (csrc/project_bwd.cu kViewParts):
+# the view transform's term (16, as V), the EWA W term (9, as W), the sum
+# of the SH view direction's cotangents (3).
+THREADS = 128
+VIEW_TRANSFORM, VIEW_W, VIEW_ORIGIN = (slice(0, 16), slice(16, 25),
+                                       slice(25, 28))
+VIEW_PARTS = 28
 
 
 def project(means, log_scales, quats, opacities, sh, view, proj, env_rot,
@@ -104,15 +117,18 @@ def _flags(cfg: RasterConfig) -> int:
 
 def project_bwd(means, log_scales, quats, opacities, sh, view, proj,
                 env_rot, cfg: RasterConfig, degree: int, cotangents,
-                probe: bool = False) -> tuple:
+                probe: bool = False, view_grad: bool = False) -> tuple:
     """(d_means (N, 3), d_log_scales (N, 3), d_quats (N, 4), d_opacities
     (N,), d_sh (N, K, 3), d_probe (N, 2) or None): the gradients, through
     `project`'s outputs, of the cotangents (g_xy (N, 2), g_depth (N,),
     g_conic (N, 3), g_color (N, 3), g_opacity (N,)), each an f32 tensor
     whose columns are adjacent (a column view of a wider row will do) or
     None for zeros; with `probe`, also the gradient of an xy probe added to
-    xy. The inputs as `project` takes them, K at most 16; anything else
-    raises."""
+    xy; with `view_grad`, a seventh entry, the (4, 4) gradient of the view
+    matrix (G-bwd's view kernel, counted in cuda_lib.launches under
+    "project_gaussians_bwd_view" too, and in the recorder's counter
+    "project.view_grad" on every replay of a captured step). The inputs
+    as `project` takes them, K at most 16; anything else raises."""
     dev, n, k = _check_inputs(means, log_scales, quats, opacities, sh, view,
                               proj, env_rot, degree, max_coeffs=16)
     f32 = torch.float32
@@ -132,6 +148,8 @@ def project_bwd(means, log_scales, quats, opacities, sh, view, proj,
     grads = tuple(torch.empty_like(t) for t in (means, log_scales, quats,
                                                  opacities, sh))
     d_probe = torch.empty((n, 2), dtype=f32, device=dev) if probe else None
+    parts = (torch.empty((-(-n // THREADS), VIEW_PARTS), dtype=f32,
+                         device=dev) if view_grad else None)
     if n:
         lib = cuda_lib.library()
         cuda_lib.check("project_gaussians_bwd",
@@ -142,9 +160,33 @@ def project_bwd(means, log_scales, quats, opacities, sh, view, proj,
             float(cfg.image_width), float(cfg.image_height), cfg.lowpass,
             _flags(cfg), *cots, *(g.data_ptr() for g in grads),
             None if d_probe is None else d_probe.data_ptr(),
+            None if parts is None else parts.data_ptr(),
             cuda_lib.stream_handle(dev)))
         cuda_lib.launches["project_gaussians_bwd"] += 1
-    return (*grads, d_probe)
+        if view_grad:
+            cuda_lib.launches["project_gaussians_bwd_view"] += 1
+    if not view_grad:
+        return (*grads, d_probe)
+    if profiling.active is not None:
+        profiling.count("project.view_grad",
+                        torch.ones((), dtype=torch.int64, device=dev))
+    return (*grads, d_probe, assemble_view_grad(parts, view))
+
+
+def assemble_view_grad(parts: torch.Tensor, view: torch.Tensor
+                       ) -> torch.Tensor:
+    """The (4, 4) gradient of the view matrix V = [R | t] from rows of
+    partial sums (B, VIEW_PARTS): their sum's view-transform term, plus its
+    W term on R, plus the camera origin's: origin = -(R^T t) enters the SH
+    view direction d = m - origin, so with G the summed cotangents of d,
+    R gets t G^T and t gets R G. Device ops only: no host read."""
+    s = parts.sum(0)
+    g = s[VIEW_TRANSFORM].reshape(4, 4)
+    g_dir = s[VIEW_ORIGIN]
+    r, t = view[:3, :3].to(s.dtype), view[:3, 3].to(s.dtype)
+    g_r = g[:3, :3] + s[VIEW_W].reshape(3, 3) + t[:, None] * g_dir[None, :]
+    g_t = g[:3, 3] + (r * g_dir[None, :]).sum(1)
+    return torch.cat([torch.cat([g_r, g_t[:, None]], 1), g[3:]], 0)
 
 
 def _sh_basis(degree: int, x, y, z) -> tuple:
@@ -186,12 +228,13 @@ def _sh_basis(degree: int, x, y, z) -> tuple:
 def project_gaussians_bwd_torch(means, log_scales, quats, opacities, sh,
                                 view, proj, env_rot, cfg: RasterConfig,
                                 degree: int, cotangents,
-                                probe: bool = False) -> tuple:
+                                probe: bool = False,
+                                view_grad: bool = False) -> tuple:
     """G-bwd's plain twin: project_bwd's gradients in PyTorch ops, on any
     device, in the dtype of `means` (f32 or f64), from G-bwd's formulas:
     reverse mode through projection.py::project_gaussians_torch as
     autograd takes it, with exact zeros for a gaussian whose cotangents are
-    all zero."""
+    all zero (and nothing from it in the view's gradient)."""
     n, dt = means.shape[0], means.dtype
     zero = means.new_zeros(n)
 
@@ -274,6 +317,7 @@ def project_gaussians_bwd_torch(means, log_scales, quats, opacities, sh,
         bk * graw if isinstance(bk, float) else bk[:, None] * graw
         for bk in basis], 1)
     dm = torch.zeros_like(m)
+    d_sum = zero.new_zeros(3)
     if degree >= 1:
         per_k = (coeffs * graw[:, None, :]).sum(-1)               # (N, nb)
         g_dir = torch.stack([sum(dk * per_k[:, k] for k, dk in enumerate(dd))
@@ -283,6 +327,7 @@ def project_gaussians_bwd_torch(means, log_scales, quats, opacities, sh,
         g_raw = torch.where(nrm_raw >= 1e-8, g_nrm, 0.0)
         scale = torch.where(nrm_raw == 0, 0.0, g_raw / nrm_raw)
         dm = ge / nrm[:, None] + d * scale[:, None]
+        d_sum = torch.where(live[:, None], dm, 0.0).sum(0)
 
     # Opacity: the antialias factor, the sigmoid.
     g_act, ga, gb, gc = gop, zero, zero, zero
@@ -364,7 +409,18 @@ def project_gaussians_bwd_torch(means, log_scales, quats, opacities, sh,
     d_probe = None
     if probe:
         d_probe = torch.stack([gx, gy], -1)
-    return (keep(dm), keep(d_ls), keep(d_q), keep(d_op), keep(d_sh), d_probe)
+    out = (keep(dm), keep(d_ls), keep(d_q), keep(d_op), keep(d_sh), d_probe)
+    if not view_grad:
+        return out
+    # The view: vh = V [m, 1]; u0 = j00 W[0] + j02 W[2], u1 = j11 W[1] +
+    # j12 W[2]; the SH direction's origin (assemble_view_grad).
+    mh = torch.cat([m, torch.ones_like(m[:, :1])], -1)
+    g_transform = (keep(g_vh)[:, :, None] * mh[:, None, :]).sum(0)
+    g_w = torch.stack([keep(gu0 * j00[:, None]).sum(0),
+                       keep(gu1 * j11[:, None]).sum(0),
+                       keep(gu0 * j02[:, None] + gu1 * j12[:, None]).sum(0)])
+    parts = torch.cat([g_transform.reshape(16), g_w.reshape(9), d_sum])
+    return (*out, assemble_view_grad(parts[None], v))
 
 
 def compare_bwd(got, plain, exact, live) -> dict:

@@ -6,12 +6,14 @@ frustum cull.
 Two implementations of one algorithm, chosen by what the call shows: on
 CUDA, kernel G (render/kernels/project.py) in one pass when the model's
 five tensors, the camera's and any xy_probe are f32 and no gradient is
-recorded for the camera; where a gradient is recorded for the model or
-the probe, G runs inside an autograd Function whose backward is kernel
-G-bwd. Otherwise the plain version, project_gaussians_torch, which stays
-the CPU path. `plain_calls` counts the CUDA calls that took the plain
-version, by reason ("camera_grad", "dtype"); G's launches count in
-cuda_lib.launches["project_gaussians"], G-bwd's in
+recorded for the projection or the environment rotation; where a gradient
+is recorded for the model, the probe or the view matrix (pose
+refinement), G runs inside an autograd Function whose backward is kernel
+G-bwd, which computes the view's gradient only where it is asked for.
+Otherwise the plain version, project_gaussians_torch, which stays the CPU
+path. `plain_calls` counts the CUDA calls that took the plain version, by
+reason ("camera_grad": a gradient on proj or env_rot; "dtype"); G's
+launches count in cuda_lib.launches["project_gaussians"], G-bwd's in
 cuda_lib.launches["project_gaussians_bwd"]."""
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def plain_reason(model: GaussianModel, camera: Camera,
     """Why a call takes the plain version rather than kernels G and G-bwd,
     or None: the module docstring's rule, the device aside."""
     cam = [camera.view, camera.proj, camera.env_rot]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in cam):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in cam[1:]):
         return "camera_grad"
     probe = [] if xy_probe is None else [xy_probe]
     if any(t.dtype != torch.float32
@@ -58,8 +60,8 @@ def plain_reason(model: GaussianModel, camera: Camera,
 
 class _Project(torch.autograd.Function):
     """G forward, G-bwd backward: the splats of `project_gaussians`,
-    differentiable in the model's five tensors and the xy probe (radius is
-    not differentiable, as in the plain version)."""
+    differentiable in the model's five tensors, the view matrix and the xy
+    probe (radius is not differentiable, as in the plain version)."""
 
     @staticmethod
     def forward(ctx, cfg, degree, means, log_scales, quats, opacities, sh_,
@@ -79,22 +81,25 @@ class _Project(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_xy, g_depth, g_conic, g_color, g_opacity, _):
         need_fields = ctx.needs_input_grad[2:7]
+        need_view = ctx.needs_input_grad[7]
         need_probe = ctx.needs_input_grad[10]
-        grads, g_probe = (None,) * 5, None
-        if any(need_fields):
+        grads, g_probe, g_view = (None,) * 5, None, None
+        if any(need_fields) or need_view:
             cots = tuple(None if g is None
                          else g if g.dim() == 1 or g.stride(1) == 1
                          else g.contiguous()
                          for g in (g_xy, g_depth, g_conic, g_color,
                                    g_opacity))
-            *grads, g_probe = kernel.project_bwd(
+            out = kernel.project_bwd(
                 *ctx.saved_tensors, ctx.cfg, ctx.degree, cots,
-                probe=need_probe)
+                probe=need_probe, view_grad=need_view)
+            grads, g_probe = out[:5], out[5]
+            g_view = out[6] if need_view else None
             grads = [g if need else None
                      for g, need in zip(grads, need_fields)]
         elif need_probe and g_xy is not None:
             g_probe = g_xy.clone()
-        return (None, None, *grads, None, None, None, g_probe)
+        return (None, None, *grads, g_view, None, None, g_probe)
 
 
 def project_gaussians(model: GaussianModel, camera: Camera,
@@ -117,7 +122,7 @@ def project_gaussians(model: GaussianModel, camera: Camera,
                                             camera.env_rot)]
             probe = [] if xy_probe is None else [xy_probe.contiguous()]
             if torch.is_grad_enabled() and any(
-                    t.requires_grad for t in fields + probe):
+                    t.requires_grad for t in fields + probe + cam[:1]):
                 return ProjectedSplats(*_Project.apply(
                     cfg, degree, *fields, *cam, *(probe or [None])))
             xy, *rest = kernel.project(*fields, *cam, cfg, degree)

@@ -6,6 +6,12 @@ camera first, the corrected camera drives both the photometric render and
 the depth residuals, and the exposure map sits on the loss side only. A
 module that is off (None in AuxState) costs nothing and holds no leaves,
 so a (TrainState, AuxState) checkpoint has the reference's leaves.
+
+Spans (utils/profiling.py), besides every step kind's: "pose" (the
+delta's se3_exp and the corrected camera) and "exposure" (the affine map
+on the image), both inside "render", and "aux.adam" (the deltas' and the
+maps' Adam steps) after "adam". The view's gradient comes from kernel
+G-bwd (render/projection.py), as the model's does.
 """
 
 from __future__ import annotations
@@ -86,31 +92,35 @@ def make_aux_step(raster_cfg: RasterConfig, train_cfg: trainer.TrainConfig,
              obs: Optional[torch.Tensor],
              mask: Optional[torch.Tensor]) -> torch.Tensor:
         params = state.params
+        dev = params.device
         leaves, cam = [], camera
-        with profiling.span("render", params.device):
+        with profiling.span("render", dev):
             if pose_lr > 0:
-                deltas = aux.pose.deltas.detach().requires_grad_()
-                leaves.append(deltas)
-                cam = pose_opt.apply_delta(
-                    camera, trainer.select_row(deltas, view_idx))
+                with profiling.span("pose", dev):
+                    deltas = aux.pose.deltas.detach().requires_grad_()
+                    leaves.append(deltas)
+                    cam = pose_opt.apply_delta(
+                        camera, trainer.select_row(deltas, view_idx))
             image = render_image(params, cam, raster_cfg)
             if exposure_lr > 0:
-                mats = aux.exposure.mats.detach().requires_grad_()
-                leaves.append(mats)
-                image = appearance.apply_exposure(
-                    image, trainer.select_row(mats, view_idx))
+                with profiling.span("exposure", dev):
+                    mats = aux.exposure.mats.detach().requires_grad_()
+                    leaves.append(mats)
+                    image = appearance.apply_exposure(
+                        image, trainer.select_row(mats, view_idx))
         # The depth residuals use the pose-corrected camera.
         loss = trainer.image_loss(image, target, train_cfg, (
             lambda: depth_weight * depth.sparse_depth_loss(
                 params, cam, obs, mask, raster_cfg))
             if depth_weight > 0.0 else None)
         rest = iter(trainer.gradient_step(state, loss, train_cfg, leaves))
-        if pose_lr > 0:
-            trainer.adam_apply(aux.pose.deltas, next(rest),
-                               aux.pose.opt_state, pose_lr)
-        if exposure_lr > 0:
-            trainer.adam_apply(aux.exposure.mats, next(rest),
-                               aux.exposure.opt_state, exposure_lr)
+        with profiling.span("aux.adam", dev):
+            if pose_lr > 0:
+                trainer.adam_apply(aux.pose.deltas, next(rest),
+                                   aux.pose.opt_state, pose_lr)
+            if exposure_lr > 0:
+                trainer.adam_apply(aux.exposure.mats, next(rest),
+                                   aux.exposure.opt_state, exposure_lr)
         return loss.detach()
 
     return step

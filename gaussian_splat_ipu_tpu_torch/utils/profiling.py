@@ -55,8 +55,11 @@ the span's start where y's gradient arrives and its end where x's does
 received splats' gradient to the sent ones').
 
 count(name, value) adds to the recorder's counter `name`: a number at
-once, a device tensor on its device, read back once by summary(). Calls
-inside a CUDA-graph capture are not counted.
+once (inside a CUDA-graph capture too, once, not on each replay), a
+device tensor on its device, read back once by summary(). Inside a
+capture a device tensor's add is captured into the graph, so it counts on
+every replay, to a counter that a call before the capture made (the
+engine's warm-ups make it); without one it is not counted.
 
 Recording is off unless start() was called: span() then returns a shared
 no-op context, mark() and the backward stamps return their input, count()
@@ -584,21 +587,24 @@ def backward_ends(x: torch.Tensor, name: str) -> torch.Tensor:
 
 def count(name: str, value) -> None:
     """Add `value` (a number, or a one-element tensor added on its device
-    without a read-back) to the recorder's counter `name`, while spans are
-    recorded and no CUDA graph is being captured."""
+    without a read-back) to the recorder's counter `name` while spans are
+    recorded; inside a CUDA-graph capture, as the module docstring says."""
     rec = active
     if rec is None:
         return
     if not isinstance(value, torch.Tensor):
         rec.counters[name] += value
         return
-    if value.is_cuda and torch.cuda.is_current_stream_capturing():
-        return
+    value = value.detach().to(torch.int64)
     acc = rec.device_counters.get(name)
+    if value.is_cuda and torch.cuda.is_current_stream_capturing():
+        if acc is not None and acc.device == value.device:
+            acc.add_(value)
+        return
     if acc is None:
-        rec.device_counters[name] = value.detach().to(torch.int64).clone()
+        rec.device_counters[name] = value.clone()
     else:
-        acc.add_(value.detach().to(device=acc.device))
+        acc.add_(value.to(device=acc.device))
 
 
 def clear() -> None:

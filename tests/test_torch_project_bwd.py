@@ -1,13 +1,15 @@
 """Kernel G-bwd (render/kernels/project.py::project_bwd) and its plain
 twin, project_gaussians_bwd_torch: on the CPU the twin equals autograd of
-the plain projection in float64, compare_bwd's bound holds the twin in
-f32 and counts planted faults, and projection.py's autograd Function (G
-forward, G-bwd backward) routes its gradients as autograd does, with the
-kernels replaced by their plain versions; on a CUDA card (marked `cuda`,
-skipped without one) G-bwd is as accurate as PyTorch's f32 autograd of
-the plain version, gives exact zeros where its cotangents are zero and
-reads strided cotangents. This file imports no JAX: its cuda tests run on
-the card with --noconftest."""
+the plain projection in float64, the view matrix's gradient too,
+compare_bwd's bound holds the twin in f32 and counts planted faults, and
+projection.py's autograd Function (G forward, G-bwd backward) routes its
+gradients as autograd does, the view's too, with the kernels replaced by
+their plain versions; on a CUDA card (marked `cuda`, skipped without one)
+G-bwd is as accurate as PyTorch's f32 autograd of the plain version,
+gives exact zeros where its cotangents are zero, reads strided
+cotangents, and its view gradient at 2^20 SH 3 is as accurate as the f32
+twin's. This file imports no JAX: its cuda tests run on the card with
+--noconftest."""
 
 import dataclasses
 
@@ -190,6 +192,96 @@ def test_the_scene_reaches_every_branch():
     assert bool((got[4][:, :4] != 0).any())
 
 
+def past_the_clamp(model, cam, cfg):
+    """The model with 8 large, opaque gaussians appended, two past the 1.3
+    tan_fov clamp on each side of each axis (at depths 2 and 3), each wide
+    enough to reach the screen."""
+    _, _, tan_x, tan_y = cam.focals(cfg.image_width, cfg.image_height)
+    dt = model.means.dtype
+    rows = []
+    for axis, tan in ((0, tan_x), (1, tan_y)):
+        for sign in (1.0, -1.0):
+            for depth in (2.0, 3.0):
+                p = torch.zeros(3, dtype=dt)
+                p[2] = -depth
+                p[axis] = sign * 1.6 * float(tan) * depth
+                rows.append(p)
+    p = torch.stack(rows)
+    n, k = p.shape[0], model.sh.shape[1]
+    r, t = cam.view[:3, :3].to(dt), cam.view[:3, 3].to(dt)
+    g = torch.Generator().manual_seed(0)
+    extra = dict(
+        means=(p - t) @ r,
+        log_scales=torch.log(0.2 * -p[:, 2:3]).expand(n, 3),
+        quats=torch.randn((n, 4), generator=g, dtype=dt),
+        opacities=torch.full((n,), 4.0, dtype=dt),
+        sh=torch.rand((n, k, 3), generator=g, dtype=dt) - 0.5)
+    return GaussianModel(*(torch.cat([getattr(model, f).detach(), extra[f]])
+                           for f in FIELDS), dtype=dt)
+
+
+def autograd_view_grad(model, cam, cfg, cots, rows):
+    """torch.autograd.grad of the plain projection of the gaussians `rows`
+    (a bool mask) with respect to the view matrix, as a leaf."""
+    view = cam.view.detach().clone().requires_grad_(True)
+    sub = GaussianModel(*(getattr(model, k).detach()[rows] for k in FIELDS),
+                        dtype=model.means.dtype)
+    posed = Camera(view, cam.proj)
+    posed.env_rot = cam.env_rot
+    sp = projection.project_gaussians_torch(sub, posed, cfg)
+    used = [(o, c[rows]) for o, c in zip(sp[:5], cots)
+            if c is not None and o.requires_grad]
+    return torch.autograd.grad([o for o, _ in used], [view],
+                               [c for _, c in used])[0]
+
+
+VIEW_CASES = [(0, {}), (0, dict(antialias=True)), (3, {}),
+              (3, dict(antialias=True))]
+
+
+@pytest.mark.parametrize("case", VIEW_CASES,
+                         ids=lambda c: case_id((*c, None)))
+def test_twin_view_gradient_equals_autograd_in_float64(case):
+    """The view matrix's gradient (project_bwd's seventh entry) of the
+    twin against autograd of the plain projection with the view a leaf, in
+    float64, at SH degrees 0 and 3, antialias off and on, an environment
+    rotation on, depth's cotangent given: the culled gaussians' cotangents
+    are zero (dead slots), and autograd is taken over the live gaussians
+    alone (a dead zero quaternion's NaN would spread through autograd's
+    sum; the twin adds nothing for a dead gaussian). Live gaussians lie
+    past the 1.3 tan_fov clamp on both sides of both axes. Every
+    cotangent zero: exact zeros."""
+    degree, change = case
+    cfg = dataclasses.replace(CFG, **change)
+    model, cam = cast(scene("cpu", sh_degree=degree, seed=degree + 1),
+                      camera("cpu", (0.3, -0.5)), torch.float64)
+    model = past_the_clamp(model, cam, cfg)
+    with torch.no_grad():
+        sp = projection.project_gaussians_torch(model, cam, cfg)
+        view_h = torch.cat([model.means, torch.ones_like(model.means[:, :1])],
+                           -1) @ cam.view.T
+        _, _, tan_x, tan_y = cam.focals(cfg.image_width, cfg.image_height)
+        ratio = view_h[:, :2] / view_h[:, 2:3]
+    live = sp.radius[:, 0] > 0
+    for axis, tan in enumerate((tan_x, tan_y)):
+        assert bool((live & (ratio[:, axis] > 1.3 * tan)).any())
+        assert bool((live & (ratio[:, axis] < -1.3 * tan)).any())
+    assert bool((~live).any()) and bool((model.quats[~live] == 0).all(-1)
+                                        .any())
+    cots = cotangents(sp, zero_culled=True)
+    args = [getattr(model, k).detach() for k in FIELDS] + [
+        cam.view, cam.proj, cam.env_rot, cfg, degree]
+    got = kernel.project_gaussians_bwd_torch(*args, cots, view_grad=True)
+    assert len(got) == 7 and got[-1].shape == (4, 4)
+    want = autograd_view_grad(model, cam, cfg, cots, live)
+    torch.testing.assert_close(got[-1], want, rtol=RTOL64,
+                               atol=ATOL64 * scale(want))
+    assert bool((want[:3].abs() > 1e-6 * scale(want)).all())
+    zero = kernel.project_gaussians_bwd_torch(
+        *args, [torch.zeros_like(c) for c in cots], view_grad=True)
+    assert bool((zero[-1] == 0).all())
+
+
 def test_zero_cotangents_give_exact_zeros():
     """Every cotangent zero (or absent): every gradient exactly zero, the
     probe's too, NaN-making gaussians included."""
@@ -337,6 +429,50 @@ def test_the_function_routes_gradients_as_autograd(monkeypatch, who):
         torch.testing.assert_close(got[0], weights[:, :2], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("frozen", [False, True],
+                         ids=["pose_and_scene", "pose_alone"])
+def test_the_function_routes_the_view_gradient(monkeypatch, frozen):
+    """A view matrix made from a leaf (a pose delta's corrected camera,
+    V' = (I + D) V) through the autograd Function with the plain kernels,
+    against autograd of the plain version, in float64: the leaf's gradient
+    (and the model's, when it trains) as autograd's; G-bwd runs once, with
+    the view's gradient."""
+    launches = []
+    plain_kernels(monkeypatch)
+    twin = projection.kernel.project_bwd
+
+    def counted(*args, **kw):
+        launches.append(kw.get("view_grad"))
+        return twin(*args, **kw)
+
+    monkeypatch.setattr(projection.kernel, "project_bwd", counted)
+    model, cam = cast(scene("cpu", n=600, sh_degree=3, seed=5),
+                      camera("cpu", (0.3, 0.2)), torch.float64,
+                      requires_grad=not frozen)
+    n = model.num_gaussians
+    weights = torch.tensor(np.random.default_rng(1).normal(size=(n, 9)))
+
+    def grads(project):
+        d = torch.zeros((4, 4), dtype=torch.float64, requires_grad=True)
+        posed = Camera((torch.eye(4, dtype=torch.float64) + d) @ cam.view,
+                       cam.proj)
+        posed.env_rot = cam.env_rot
+        sp = project(model, posed, CFG)
+        packed = torch.cat([sp.xy, sp.conic, sp.color, sp.opacity[:, None]],
+                           -1)
+        inputs = [d] + ([] if frozen else [getattr(model, k)
+                                           for k in FIELDS])
+        return torch.autograd.grad((packed * weights).sum(), inputs)
+
+    got = grads(lambda m, c, cfg: function_call(m, c, cfg, None))
+    want = grads(projection.project_gaussians_torch)
+    assert len(got) == len(want) == (1 if frozen else 6)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL64,
+                                   atol=ATOL64 * scale(w), equal_nan=True)
+    assert launches == [True]
+
+
 def test_radius_is_not_differentiable(monkeypatch):
     plain_kernels(monkeypatch)
     model, cam = cast(scene("cpu", n=200, sh_degree=1), camera("cpu"),
@@ -452,3 +588,49 @@ def test_strided_cotangents_read_as_contiguous_ones_on_the_card():
     b = kernel.project_bwd(*args, CFG, 2, [v.contiguous() for v in views])
     for x, y in zip(a[:5], b[:5]):          # NaN at the zero quaternion
         torch.testing.assert_close(x, y, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_view_gradient_at_capture_scale_on_the_card():
+    """G-bwd's view gradient at 2^20 gaussians, SH degree 3, 1280x720,
+    every gaussian given normal cotangents (depth's none, as in a render),
+    against the twin's in float64 on the same f32 inputs: G-bwd's error at
+    most ACC_FACTOR times the f32 twin's (floored at ACC_FLOOR of the
+    gradient's norm), and its parameter gradients equal to the camera-free
+    launch's bit for bit."""
+    need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    model = GaussianModel.random(1 << 20, generator=gen, device=dev,
+                                 sh_degree=3)
+    cfg = dataclasses.replace(CFG, image_width=1280, image_height=720,
+                              tile_width=32, tile_height=32)
+    cam = camera("cuda")
+    with torch.no_grad():
+        sp = projection.project_gaussians_torch(model, cam, cfg)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) for o in sp[:5]]
+    cots[1] = None
+    args = [getattr(model, k) for k in FIELDS] + [cam.view, cam.proj,
+                                                  cam.env_rot, cfg, 3]
+    cuda_lib.launches.clear()
+    got = kernel.project_bwd(*args, cots, view_grad=True)
+    plain = kernel.project_bwd(*args, cots)
+    twin = kernel.project_gaussians_bwd_torch(*args, cots, view_grad=True)
+    m64 = [a.double() if isinstance(a, torch.Tensor) else a for a in args]
+    exact = kernel.project_gaussians_bwd_torch(
+        *m64, [None if c is None else c.double() for c in cots],
+        view_grad=True)[-1]
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["project_gaussians_bwd"] == 2
+    for a, b in zip(got[:6], plain):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0.0, atol=0.0,
+                                       equal_nan=True)
+    err = float((got[-1].double() - exact).norm())
+    bound = kernel.ACC_FACTOR * max(float((twin[-1].double() - exact).norm()),
+                                    kernel.ACC_FLOOR * float(exact.norm()))
+    print(f"view gradient: G-bwd error {err:.3e}, bound {bound:.3e}, "
+          f"norm {float(exact.norm()):.3e}")
+    assert err <= bound

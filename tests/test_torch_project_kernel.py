@@ -1,11 +1,11 @@
 """Kernel G (render/kernels/project.py) and project_gaussians' choice of
-path: CPU calls, and CUDA calls that record a gradient for the camera or
-hold another dtype, take the plain version; on a CUDA card (marked `cuda`,
-skipped without one) G equals the plain version within the kernel's
-tolerances (project.compare), a rendered frame equals the plain path's,
-and calls that record a gradient for the model or an xy_probe run G and
-G-bwd. This file imports no JAX: its cuda tests run on the card with
---noconftest."""
+path: CPU calls, and CUDA calls that record a gradient for the projection
+or hold another dtype, take the plain version; on a CUDA card (marked
+`cuda`, skipped without one) G equals the plain version within the
+kernel's tolerances (project.compare), a rendered frame equals the plain
+path's, and calls that record a gradient for the model, an xy_probe or
+the view matrix run G and G-bwd. This file imports no JAX: its cuda tests
+run on the card with --noconftest."""
 
 import dataclasses
 import os
@@ -85,12 +85,14 @@ def need_card():
 
 def reason_cases(device):
     """name -> (model, camera, xy_probe, grad mode, the reason expected).
-    A gradient for the model or a probe, or a probe, is no reason (G and
-    G-bwd, on CUDA); one for the camera is (pose optimisation)."""
+    A gradient for the model, a probe or the view matrix (pose
+    refinement), or a probe, is no reason (G and G-bwd, on CUDA); one for
+    the projection is."""
     model = scene(device, n=64, sh_degree=1)
     trainable = model.trainable()
     probe = torch.zeros((64, 2), device=device)
     cam = camera(device)
+    focal = Camera(cam.view, cam.proj.clone().requires_grad_(), cam.env_rot)
     posed = Camera(cam.view.clone().requires_grad_(), cam.proj, cam.env_rot)
     return {
         "inference": (model, cam, None, True, None),
@@ -99,8 +101,9 @@ def reason_cases(device):
         "xy_probe": (trainable, cam, probe, True, None),
         "xy_probe_no_grad": (model, cam, probe, False, None),
         "dtype": (model.astype(torch.bfloat16), cam, None, False, "dtype"),
-        "camera_grad": (model, posed, None, True, "camera_grad"),
-        "camera_grad_no_grad": (model, posed, None, False, None),
+        "camera_grad": (model, focal, None, True, "camera_grad"),
+        "camera_grad_no_grad": (model, focal, None, False, None),
+        "view_grad": (model, posed, None, True, None),
     }
 
 
@@ -127,7 +130,7 @@ def test_cpu_calls_take_the_plain_version_and_launch_nothing(name):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
     assert got.xy.requires_grad == (grad and (name in (
-        "grad", "xy_probe", "camera_grad")))
+        "grad", "xy_probe", "camera_grad", "view_grad")))
 
 
 def test_the_wrapper_refuses_other_devices():
@@ -207,9 +210,10 @@ def test_kernel_matches_the_plain_version_on_the_card(case):
 def test_frames_and_the_choice_of_path_on_the_card(monkeypatch):
     """render() through G against render() through the plain version
     (img_rel_l2 <= 1e-5); an xy_probe runs G, and a call that records a
-    gradient for the model G and then G-bwd; a bf16 model and a camera
-    that requires grad take the plain version, each counted under its
-    reason; the wrapper refuses a non-contiguous or f64 input."""
+    gradient for the model, or for the view matrix alone, G and then
+    G-bwd; a bf16 model and a projection that requires grad take the plain
+    version, each counted under its reason; the wrapper refuses a
+    non-contiguous or f64 input."""
     need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     model = scene("cuda")
@@ -233,12 +237,18 @@ def test_frames_and_the_choice_of_path_on_the_card(monkeypatch):
     sp = projection.project_gaussians(trainable, cam, CFG)
     sp.color.sum().backward()
     assert trainable.sh.grad is not None
+    focal = Camera(cam.view, cam.proj.clone().requires_grad_(), cam.env_rot)
+    projection.project_gaussians(model, focal, CFG).xy.sum().backward()
+    assert focal.proj.grad is not None
     posed = Camera(cam.view.clone().requires_grad_(), cam.proj, cam.env_rot)
-    projection.project_gaussians(model, posed, CFG).xy.sum().backward()
-    assert posed.view.grad is not None
+    sp = projection.project_gaussians(model, posed, CFG)
+    # The culled gaussians' cotangents zero, as kernel D gives them: the
+    # zero quaternion's and the origin's NaN stay out of the sum.
+    (sp.xy * (sp.radius[:, :1] > 0)).sum().backward()
+    assert bool(torch.isfinite(posed.view.grad).all())
     torch.cuda.synchronize()
-    assert cuda_lib.launches["project_gaussians"] == 3
-    assert cuda_lib.launches["project_gaussians_bwd"] == 1
+    assert cuda_lib.launches["project_gaussians"] == 4
+    assert cuda_lib.launches["project_gaussians_bwd"] == 2
     assert dict(projection.plain_calls) == {"dtype": 1, "camera_grad": 1}
     args = [model.means, model.log_scales, model.quats, model.opacities,
             model.sh, cam.view, cam.proj, cam.env_rot, CFG, 3]
@@ -248,4 +258,4 @@ def test_frames_and_the_choice_of_path_on_the_card(monkeypatch):
                           (4, model.sh.double(), "dtype")):
         with pytest.raises(ValueError, match=match):
             kernel.project(*args[:i], bad, *args[i + 1:])
-    assert cuda_lib.launches["project_gaussians"] == 3
+    assert cuda_lib.launches["project_gaussians"] == 4

@@ -4,7 +4,8 @@ frame program and the train step. On the CPU: host and device spans
 a fake clock; device times map through the anchors; the Chrome export's
 shape; the order of pipeline.render's spans, and of every train step
 kind's (fit, densify with and without depth, aux, view batch) with mark's
-backward firing; nothing recorded, no mark node and no kernel call
+backward firing, and the aux step's own "pose", "exposure" and
+"aux.adam"; nothing recorded, no mark node and no kernel call
 with recording off; the log's overflow; the readings of spans, and the
 benchmark's reader of the engine's register time. On a CUDA card (marked
 `cuda`, skipped without one): no stamp is captured with recording off;
@@ -204,8 +205,8 @@ STEP_KINDS = ["fit", "densify", "densify-depth", "aux", "view-batch"]
 def _step_case(kind):
     """A train step of each kind on the CPU, its scene and targets made
     before recording starts: (register(engine), program name, the run's
-    arguments, the spans its render records inside "render", and those
-    its backward records after "loss.bwd")."""
+    arguments, the spans its render records inside "render", those its
+    backward records after "loss.bwd", and those after "adam")."""
     model, cam = _scene()
     with torch.no_grad():
         target = pipeline.render(_scene(seed=1)[0], cam, CFG).image
@@ -217,7 +218,7 @@ def _step_case(kind):
         state = trainer.init_state(model.trainable())
         return (lambda eng: trainer.register_step(eng, state, cam, target,
                                                   CFG, tc),
-                trainer.STEP_PROGRAM, (state, cam, target), FRAME, [])
+                trainer.STEP_PROGRAM, (state, cam, target), FRAME, [], [])
     if kind.startswith("densify"):
         state = trainer.init_state(densify.pad_model(model, 128).trainable())
         d = densify.init_state(model.num_gaussians, 128, device="cpu")
@@ -226,14 +227,15 @@ def _step_case(kind):
         return (lambda eng: densify.register_step(
             eng, state, d, cam, target, CFG, tc, dw, vi, obs_all, mask_all),
             densify.STEP_PROGRAM, (state, d.grad_sum, d.vis_count, *view),
-            FRAME, [])
+            FRAME, [], [])
     if kind == "aux":
         state = trainer.init_state(model.trainable())
         aux = aux_opt.init_aux_state(1, 1e-3, 1e-2, device="cpu")
         return (lambda eng: aux_opt.register_step(
             eng, state, aux, vi, cam, target, obs_all, mask_all, CFG, tc,
             1e-3, 1e-2, 0.1), aux_opt.STEP_PROGRAM,
-            (state, aux, vi, cam, target, obs_all, mask_all), FRAME, [])
+            (state, aux, vi, cam, target, obs_all, mask_all),
+            ["pose", *FRAME, "exposure"], [], ["aux.adam"])
     # Two views on a (2 view groups, 2 shards) CPU mesh, one tile row a
     # shard; the sharded render records its shards' spans.
     msh = mesh_lib.make_mesh_2d(2, 2, device="cpu")
@@ -247,15 +249,16 @@ def _step_case(kind):
     return (lambda eng: trainer.register_view_step(
         eng, "view_batch_step", step, lambda _, c, t: (state, c, t), cams,
         targets), "view_batch_step", (state, cams, targets),
-        SHARDED_FRAME * 2, SHARDED_BWD * 2)
+        SHARDED_FRAME * 2, SHARDED_BWD * 2, [])
 
 
 @pytest.mark.parametrize("kind", STEP_KINDS)
 def test_train_step_spans_in_order_with_the_marks_backward(recording, kind):
     """Every step kind records the same spans around its own render:
     "render", the image's "loss" mark and span, "backward" with "loss.bwd"
-    inside (and the sharded render's backward spans after it), "adam"."""
-    register, name, args, inner, inner_bwd = _step_case(kind)
+    inside (and the sharded render's backward spans after it), "adam"
+    (and the aux step's "aux.adam" after it)."""
+    register, name, args, inner, inner_bwd, tail = _step_case(kind)
     rec = recording("cpu")
     eng = RenderEngine(RuntimeConfig(device="cpu"))
     register(eng)
@@ -264,11 +267,12 @@ def test_train_step_spans_in_order_with_the_marks_backward(recording, kind):
     dev = _by_track(rec.collect(), "device")
     assert _names(dev) == ["engine.run", "render", *inner, "loss.fwd",
                            "loss", "backward", "loss.bwd", *inner_bwd,
-                           "adam"]
+                           "adam", *tail]
     idx = {s.name: rec.spans.index(s) for s in dev}
     parent = {s.name: s.parent for s in dev}
     assert parent["render"] == parent["loss"] == parent["backward"] \
         == parent["adam"] == idx["engine.run"]
+    assert all(parent[n] == idx["engine.run"] for n in tail)
     assert all(parent[n] == idx["render"] for n in inner)
     assert parent["loss.bwd"] == idx["backward"]
     assert all(s.item == 0 for s in dev)
